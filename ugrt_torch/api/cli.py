@@ -1,0 +1,123 @@
+"""Command-line frame renderer (torch mirror of ugrt/api/cli.py).
+
+    python -m ugrt_torch.api.cli scene.obj [material_file] [--frames N]
+        [--tag name] [--out results/] [--size 1024] [--grid 128]
+        [--camera ex ey ez lx ly lz ux uy uz] [--light-camera ...]
+        [--light-position x y z] [--no-shadows] [--png] [--flip]
+        [--device cuda]
+
+The flags are ugrt's, plus ``--device`` (default ``cuda``; ``cpu`` runs
+the kernels' plain PyTorch versions).  Frame 0 shades with Lambert, later
+frames with the spotlight; PPMs (and PNGs) go through ugrt.api.io, byte
+for byte in ugrt's format.  ``--reflect`` is not ported yet (ROADMAP
+Queue 1, reflection bounce) and is refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+
+# Reference presets (main.cu:87-90 camera, main.cu:158-164 shadow camera,
+# per_frame_funcs.h:8-10 light position) — ugrt.api.cli's defaults.
+SIBENIK_CAMERA = (3.0, 15.0, 5.0, 13.0, 13.0, 3.0, 0.0, 0.0, 1.0)
+SIBENIK_LIGHT_CAMERA = (14.0, 13.0, 8.0, 14.0, 13.0, 0.0, 0.0, 1.0, 0.0)
+LIGHT_POSITION = (10.0, 12.0, 6.0)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="uniform/perspective-grid ray tracer (PyTorch/CUDA)")
+    p.add_argument("scene", help="OBJ file or dynamic-scene directory")
+    p.add_argument("material", nargs="?", default=None,
+                   help="custom material file (scene.h:370 format)")
+    p.add_argument("--frames", type=int, default=1)
+    p.add_argument("--tag", default="frame")
+    p.add_argument("--out", default="results")
+    p.add_argument("--size", type=int, default=1024)
+    p.add_argument("--grid", type=int, default=128)
+    p.add_argument("--camera", type=float, nargs=9, default=SIBENIK_CAMERA,
+                   metavar=("EX", "EY", "EZ", "LX", "LY", "LZ",
+                            "UX", "UY", "UZ"))
+    p.add_argument("--light-camera", type=float, nargs=9,
+                   default=SIBENIK_LIGHT_CAMERA)
+    p.add_argument("--light-position", type=float, nargs=3,
+                   default=LIGHT_POSITION)
+    p.add_argument("--near", type=float, default=0.1)
+    p.add_argument("--far", type=float, default=100.0)
+    p.add_argument("--reflect", action="store_true",
+                   help="not ported yet (ROADMAP: reflection bounce)")
+    p.add_argument("--no-shadows", action="store_true")
+    p.add_argument("--png", action="store_true", help="also write PNG")
+    p.add_argument("--flip", action="store_true",
+                   help="vertical flip (the reference's convert -flip)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from ugrt.api import io
+    from ugrt.config import RenderConfig
+    from ugrt.core import camera as cam
+    from ugrt.scene import model as smodel
+    from ugrt_torch.api.renderer import Renderer
+
+    if args.reflect:
+        raise SystemExit("error: --reflect is not in ugrt_torch yet (ROADMAP "
+                         "Queue 1: reflection bounce); use ugrt.api.cli")
+    if not os.path.exists(args.scene):
+        raise SystemExit(f"error: scene not found: {args.scene}")
+    if args.size % args.grid != 0 or args.size // args.grid != 8:
+        raise SystemExit(
+            f"error: --size must be --grid * 8 (8x8 pixel tiles per grid "
+            f"cell, main.cu.h:10-28); got size={args.size} "
+            f"grid={args.grid}")
+
+    cfg = dataclasses.replace(
+        RenderConfig(), screen_width=args.size, screen_height=args.size,
+        grid_x=args.grid, grid_y=args.grid)
+
+    if os.path.isdir(args.scene):
+        scenes = smodel.load_dynamic_scene(args.scene, args.material,
+                                           args.frames)
+    else:
+        scenes = [smodel.load_scene(args.scene, args.material)]
+    print(f"vertices: {scenes[0].num_vertices}\tfaces: "
+          f"{scenes[0].num_faces}\tmaterials: {scenes[0].num_materials}")
+
+    def spec(c):
+        return cam.CameraSpec(eye=tuple(c[0:3]), look_at=tuple(c[3:6]),
+                              up=tuple(c[6:9]), near=args.near, far=args.far)
+
+    camera_spec = spec(args.camera)
+    lights = [] if args.no_shadows else [spec(args.light_camera)]
+
+    os.makedirs(args.out, exist_ok=True)
+    renderer = Renderer(scenes[0], cfg, device=args.device)
+    for frame in range(args.frames):
+        scene = scenes[min(frame, len(scenes) - 1)]
+        renderer.update_vertices(scene.vertices)
+        t0 = time.perf_counter()
+        out = renderer.render(camera_spec, lights, args.light_position)
+        img = out["image"].cpu().numpy()
+        dt = time.perf_counter() - t0
+        if bool(out["overflow"]):
+            print(f"warning: frame {frame}: grid capacity overflow "
+                  "(geometry clipped)")
+        name = os.path.join(args.out, f"{args.tag}-{frame}")
+        io.write_ppm(name + ".ppm", np.asarray(img), flip=args.flip)
+        if args.png:
+            io.write_png(name + ".png", img, flip=args.flip)
+        print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device} -> "
+              f"{name}.ppm" + (" (+.png)" if args.png else ""))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,60 @@
+"""Shared machinery of the plain PyTorch sweep versions.
+
+A sweep's work is the set of (ray block, window) items given by each
+block's inclusive window range.  The plain versions expand those items,
+evaluate them in chunks as [C, 128 rays, win triangles] tensors, and
+combine per ray with order-independent reductions — lex-min (t, face)
+for the primary sweeps, OR for the shadow sweep — so they equal the
+kernels, which walk the same items as a loop inside each CUDA block.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BIG = 3.0e38          # "no hit" t
+MAXI = 2**31 - 1      # "no hit" face id
+_PAIRS_PER_CHUNK = 1 << 21   # (ray, triangle) pairs evaluated at once
+
+
+def sweep_items(tri_windows, w_lo, w_hi):
+    """Yield (blk [C] int64, tri [C, win, 16]) chunks of the items
+    {(b, w) : max(w_lo[b], 0) <= w <= min(w_hi[b], NW - 1)}."""
+    nw, win = tri_windows.shape[0], tri_windows.shape[1]
+    dev = tri_windows.device
+    lo = torch.clamp(w_lo.long(), min=0)
+    n = torch.clamp(torch.clamp(w_hi.long(), max=nw - 1) - lo + 1, min=0)
+    blk = torch.repeat_interleave(torch.arange(n.shape[0], device=dev), n)
+    start = torch.cumsum(n, 0) - n
+    widx = lo[blk] + torch.arange(blk.shape[0], device=dev) - start[blk]
+    chunk = max(1, _PAIRS_PER_CHUNK // (128 * win))
+    for s in range(0, blk.shape[0], chunk):
+        yield blk[s:s + chunk], tri_windows[widx[s:s + chunk]]
+
+
+def _ray_index(blk):
+    lane = torch.arange(128, device=blk.device)
+    return (blk[:, None] * 128 + lane[None, :]).reshape(-1)
+
+
+def lexmin_into(t_best, f_best, blk, t, reject, face):
+    """Fold the candidates t [C, 128, win] (face [C, 1, win] f32 ids) of
+    items ``blk`` into the per-ray lex-min (t, face) arrays, in place."""
+    keep = ~reject & (t < BIG)
+    t = torch.where(keep, t, BIG)
+    tmin = t.amin(dim=2)
+    fmin = torch.where(keep & (t == tmin[..., None]), face.to(torch.int32),
+                       MAXI).amin(dim=2)
+    idx = _ray_index(blk)
+    new_t = t_best.scatter_reduce(0, idx, tmin.reshape(-1), "amin")
+    cand = torch.where(tmin.reshape(-1) == new_t[idx], fmin.reshape(-1),
+                       MAXI)
+    kept = torch.where(t_best == new_t, f_best, MAXI)
+    f_best.copy_(kept.scatter_reduce(0, idx, cand, "amin"))
+    t_best.copy_(new_t)
+
+
+def or_into(flags, blk, hit):
+    """OR the per-item flags hit [C, 128] into flags [NB * 128], in place."""
+    flags.scatter_reduce_(0, _ray_index(blk), hit.reshape(-1).to(flags.dtype),
+                          "amax")

@@ -1,0 +1,102 @@
+"""K2 — dense primary sweep over the heavy faces
+(CUDA: ``csrc/heavy_primary_sweep.cu``).
+
+Replaces ugrt's Pallas ``heavy_primary_sweep`` (ugrt/trace/
+pallas_tracer.py: _heavy_primary_kernel and
+_heavy_primary_kernel_unrolled, :641-724, with _heavy_common :605-635),
+two bitwise-equal variants picked by live density; one kernel covers
+both here.  Every ray tests every live heavy face of the comp-major
+[16, NWH * 128] table from ``pack_heavy_windows``; the op order is
+ugrt.trace.heavy.heavy_min_t's.
+
+``heavy_primary_sweep`` launches the kernel for CUDA tensors and runs
+``heavy_primary_sweep_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ugrt.config import RenderConfig
+from ugrt_torch.kernels import _build
+from ugrt_torch.kernels._plain import BIG, MAXI, lexmin_into, sweep_items
+
+WIN = 128
+
+
+def _check(heavy_count, table, rays):
+    dev = rays.device
+    _build.check_tensor(heavy_count, "heavy_count", torch.int32, (), dev)
+    _build.check_tensor(table, "table", torch.float32, (16, None), dev)
+    if table.shape[1] % WIN:
+        raise ValueError(f"table: width {table.shape[1]} is not a multiple "
+                         f"of {WIN}")
+    _build.check_tensor(rays, "rays", torch.float32, (None, 128, 8), dev)
+
+
+def heavy_primary_sweep(heavy_count, table, rays, *, cfg: RenderConfig):
+    """Per-ray (t [NB, 128] f32, face [NB, 128] int32): lex-min (t, face)
+    over the live heavy faces whose footprint holds the ray's cell;
+    t = 3e38 and face = 2^31-1 where there is none.
+
+    heavy_count: int32 scalar tensor; table: [16, NWH * 128]
+    (pack_heavy_windows); rays: [NB, 128, 8] (dir 0:3, gx 4, gy 5).
+    """
+    _check(heavy_count, table, rays)
+    if rays.device.type == "cpu":
+        return heavy_primary_sweep_plain(heavy_count, table, rays, cfg=cfg)
+    if rays.device.type != "cuda":
+        raise ValueError(
+            f"heavy_primary_sweep: unsupported device {rays.device}")
+    nb = rays.shape[0]
+    t = torch.empty((nb, 128), dtype=torch.float32, device=rays.device)
+    face = torch.empty((nb, 128), dtype=torch.int32, device=rays.device)
+    _build.launch("ugrt_heavy_primary_sweep", table, table.shape[1] // WIN,
+                  heavy_count, rays, nb, np.float32(cfg.epsilon),
+                  int(cfg.quirks.abs_t), t, face)
+    heavy_primary_sweep.launches += 1
+    return t, face
+
+
+heavy_primary_sweep.launches = 0
+
+
+def heavy_primary_sweep_plain(heavy_count, table, rays, *,
+                              cfg: RenderConfig):
+    """``heavy_primary_sweep`` in PyTorch ops (any device), in the op
+    order of _heavy_common / heavy_min_t."""
+    nb = rays.shape[0]
+    nwh = table.shape[1] // WIN
+    windows = table.T.reshape(nwh, WIN, 16)
+    n_live = min(max((int(heavy_count) + WIN - 1) // WIN, 0), nwh)
+    w_lo = torch.zeros((nb,), dtype=torch.int32, device=rays.device)
+    t_best = torch.full((nb * 128,), BIG, device=rays.device)
+    f_best = torch.full((nb * 128,), MAXI, dtype=torch.int32,
+                        device=rays.device)
+    eps = np.float32(cfg.epsilon)
+    for blk, tri in sweep_items(windows, w_lo, w_lo + (n_live - 1)):
+        ray = rays[blk]
+
+        def rc(c):                                   # [C, 128 rays, 1]
+            return ray[:, :, c, None]
+
+        def tc(c):                                   # [C, 1, 128 faces]
+            return tri[:, None, :, c]
+
+        dx, dy, dz, gx, gy = rc(0), rc(1), rc(2), rc(4), rc(5)
+        det = dx * tc(0) + dy * tc(1) + dz * tc(2)
+        up = dx * tc(3) + dy * tc(4) + dz * tc(5)
+        vp = dx * tc(6) + dy * tc(7) + dz * tc(8)
+        det2 = det * det
+        ud = up * det
+        vd = vp * det
+        t = tc(9) * (1.0 / det)
+        in_fp = ((gx >= tc(10)) & (gx <= tc(11))
+                 & (gy >= tc(12)) & (gy <= tc(13)))
+        if cfg.quirks.abs_t:
+            t = torch.abs(t)
+        reject = ((torch.abs(det) < eps) | (ud < 0) | (ud > det2) | (vd < 0)
+                  | (ud + vd > det2) | ~in_fp | (t <= 0))
+        lexmin_into(t_best, f_best, blk, t, reject, tc(14))
+    return t_best.reshape(nb, 128), f_best.reshape(nb, 128)

@@ -1,0 +1,112 @@
+"""K3 — shadow sweep (CUDA: ``csrc/shadow_sweep.cu``).
+
+Replaces ugrt's Pallas ``shadow_sweep`` (ugrt/trace/pallas_tracer.py:
+_shadow_kernel + _shadow_body, :390-472) at both of its call sites in
+ugrt/trace/shadow.py: the cell-key sweep over 256-wide windows of
+``pack_tri_windows_coeff`` (:455) and, with ``box=True``, the heavy
+sweep over 128-wide ``pack_heavy_coeff_windows`` admitted by footprint
+box (:481).  Per ray: 1 if any admitted triangle occludes the segment
+from the light to the ray's surface point, else 0.
+
+``shadow_sweep`` launches the kernel for CUDA tensors and runs
+``shadow_sweep_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ugrt.config import RenderConfig
+from ugrt_torch.core.vecmath import sqrt
+from ugrt_torch.kernels import _build
+from ugrt_torch.kernels._plain import or_into, sweep_items
+
+_T_MAX = np.float32(999999.9)   # intersectTri accept bound
+
+
+def _check(tri_windows, rays, w_lo, w_hi):
+    dev = rays.device
+    nb = rays.shape[0] if rays.dim() == 3 else None
+    _build.check_tensor(tri_windows, "tri_windows", torch.float32,
+                        (None, None, 16), dev)
+    if tri_windows.shape[1] % 4:
+        raise ValueError("tri_windows: window width must be a multiple of 4")
+    _build.check_tensor(rays, "rays", torch.float32, (None, 128, 8), dev)
+    _build.check_tensor(w_lo, "w_lo", torch.int32, (nb,), dev)
+    _build.check_tensor(w_hi, "w_hi", torch.int32, (nb,), dev)
+    if tri_windows.data_ptr() % 16:
+        raise ValueError("tri_windows: the kernel reads it as float4; its "
+                         "data must be 16-byte aligned")
+
+
+def shadow_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+                 box: bool = False):
+    """Per-ray occlusion flags [NB, 128] int32.
+
+    tri_windows: [NW, win, 16] coefficient rows; rays: [NB, 128, 8]
+    (dir 0:3, light-to-point distance 3, cell key 4, gx 5, gy 6);
+    w_lo/w_hi: [NB] int32 inclusive window ranges.  A row is a candidate
+    when its key equals the ray's (box=False) or its footprint box holds
+    the ray's (gx, gy) (box=True).
+    """
+    _check(tri_windows, rays, w_lo, w_hi)
+    if rays.device.type == "cpu":
+        return shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, cfg=cfg,
+                                  box=box)
+    if rays.device.type != "cuda":
+        raise ValueError(f"shadow_sweep: unsupported device {rays.device}")
+    nb = rays.shape[0]
+    sh = torch.empty((nb, 128), dtype=torch.int32, device=rays.device)
+    _build.launch("ugrt_shadow_sweep", tri_windows, tri_windows.shape[0],
+                  tri_windows.shape[1], rays, nb, w_lo, w_hi,
+                  np.float32(cfg.epsilon), np.float32(cfg.shadow_epsilon),
+                  int(cfg.quirks.shadow_accept_negative_t), int(box), sh)
+    shadow_sweep.launches += 1
+    return sh
+
+
+shadow_sweep.launches = 0
+
+
+def shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+                       box: bool = False):
+    """``shadow_sweep`` in PyTorch ops (any device), in the op order of
+    _shadow_body (pallas_tracer.py:446-472)."""
+    nb = rays.shape[0]
+    flags = torch.zeros((nb * 128,), dtype=torch.int32, device=rays.device)
+    eps = np.float32(cfg.epsilon)
+    shadow_eps = np.float32(cfg.shadow_epsilon)
+    for blk, tri in sweep_items(tri_windows, w_lo, w_hi):
+        ray = rays[blk]
+
+        def rc(c):                                   # [C, 128 rays, 1]
+            return ray[:, :, c, None]
+
+        def tc(c):                                   # [C, 1, win tris]
+            return tri[:, None, :, c]
+
+        dx, dy, dz, dist_pt = rc(0), rc(1), rc(2), rc(3)
+        det = dx * tc(0) + dy * tc(1) + dz * tc(2)
+        inv_det = 1.0 / det
+        u = (dx * tc(3) + dy * tc(4) + dz * tc(5)) * inv_det
+        v = (dx * tc(6) + dy * tc(7) + dz * tc(8)) * inv_det
+        t = tc(9) * inv_det
+        if box:
+            gx, gy = rc(5), rc(6)
+            admitted = ((gx >= tc(11)) & (gx <= tc(12))
+                        & (gy >= tc(13)) & (gy <= tc(14)))
+        else:
+            admitted = tc(10) == rc(4)
+        reject = ((torch.abs(det) < eps) | (u < 0) | (u > 1) | (v < 0)
+                  | (u + v > 1) | ~admitted)
+        hit = ~reject & (t != 0) & (t < _T_MAX)
+        if not cfg.quirks.shadow_accept_negative_t:
+            hit = hit & (t > 0)
+        ox = t * dx
+        oy = t * dy
+        oz = t * dz
+        dist_occ = sqrt(ox * ox + oy * oy + oz * oz)
+        sh = hit & (dist_occ + shadow_eps < dist_pt)
+        or_into(flags, blk, sh.any(dim=2))
+    return flags.reshape(nb, 128)

@@ -1,0 +1,145 @@
+"""Primary-ray tracing over the perspective grid (torch mirror of the
+kernel branch of ugrt/trace/primary.py:201-443).
+
+Per slab, K1 (kernels/primary_sweep) sweeps each block of two 8x8 tiles
+(128 rays) over the windows of its two cells' pair span; K2
+(kernels/heavy_primary_sweep) sweeps every ray over the heavy list and
+its (t, face) merges by lex-min into slab 0.  Then the sequential slab
+scan with the isWithin reprojection (trace_kernel.cu:56-82) picks each
+ray's hit, and a per-face normal table gives the normals.  Misses report
+t = -1, face_id = -2, normal = -1 (trace_kernel.cu:254-263).
+
+ugrt's XLA work-item branch (primary.py:60-198, :310-334) has no
+counterpart: on the CPU the sweeps run their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ugrt.config import RenderConfig
+from ugrt_torch.core.camera import primary_ray_dirs
+from ugrt_torch.core.vecmath import cross, normalize, transform_point
+from ugrt_torch.grid.build import DeviceGrid
+from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
+from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.trace import heavy as theavy
+from ugrt_torch.trace import windows as tw
+
+
+def tile_rays(dirs, cfg: RenderConfig):
+    """[H, W, C] -> [tiles, tile_y * tile_x, C], tile = bx * tiles_y + by
+    (trace_kernel.cu:91,138: in-tile ray ty * 8 + tx, x-major cells)."""
+    ty, tx = cfg.tile_y, cfg.tile_x
+    h, w = dirs.shape[:2]
+    d = dirs.reshape(h // ty, ty, w // tx, tx, *dirs.shape[2:])
+    d = d.permute(2, 0, 1, 3, *range(4, d.dim()))
+    return d.reshape((w // tx) * (h // ty), ty * tx, *dirs.shape[2:])
+
+
+def untile(img_tiled, cfg: RenderConfig, tiles_x: int, tiles_y: int):
+    """[tiles, tile_y * tile_x, ...] -> [h, w, ...] (inverse of tile_rays)."""
+    ty, tx = cfg.tile_y, cfg.tile_x
+    trailing = img_tiled.shape[2:]
+    d = img_tiled.reshape(tiles_x, tiles_y, ty, tx, *trailing)
+    d = d.permute(1, 2, 0, 3, *range(4, 4 + len(trailing)))
+    return d.reshape(tiles_y * ty, tiles_x * tx, *trailing)
+
+
+def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
+                  cfg: RenderConfig):
+    """Full primary trace.  Returns per-pixel t [H, W], face_id [H, W]
+    int32, normal [H, W, 3] and ray_dir [H, W, 3]."""
+    H, W = cfg.screen_height, cfg.screen_width
+    if (W // cfg.tile_x != cfg.grid_x or H // cfg.tile_y != cfg.grid_y
+            or cfg.tile_x * cfg.tile_y != 64):
+        raise ValueError("screen tiles must be 8x8 and match the grid "
+                         "(main.cu.h:10-28)")
+    tiles_x, tiles_y = cfg.grid_x, cfg.grid_y
+    NS = cfg.num_slabs
+    num_tiles = tiles_x * tiles_y
+    if num_tiles % 2:
+        raise ValueError("the sweeps pack two 64-ray tiles per 128-ray block")
+    nb = num_tiles // 2
+    dev = camcoords.device
+
+    eye = camcoords[0:3]
+    dirs = primary_ray_dirs(camcoords, W, H)
+    rays_t = tile_rays(dirs, cfg)                            # [T, 64, 3]
+    tri_w = tw.pack_tri_windows(vertices, faces, grid, eye)
+
+    # Ray rows [NB, 128, 8]: dir 0:3, cell key 3, the tile's grid cell
+    # (gx, gy) 4:6 for the heavy footprint test.
+    tiles = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+    rows = torch.zeros((num_tiles, 64, 8), dtype=torch.float32, device=dev)
+    rows[:, :, 0:3] = rays_t
+    rows[:, :, 4] = (tiles // tiles_y).float()[:, None]
+    rows[:, :, 5] = (tiles % tiles_y).float()[:, None]
+    rows = rows.reshape(nb, 128, 8)
+    blocks = torch.arange(nb, dtype=torch.int64, device=dev)
+
+    t_slabs, f_slabs = [], []
+    for s in range(NS):
+        rows[:, :, 3] = (tiles * NS + s).float().reshape(nb, 2, 1).expand(
+            nb, 2, 64).reshape(nb, 128)
+        k1 = 2 * blocks * NS + s
+        k2 = (2 * blocks + 1) * NS + s
+        lo = grid.cell_offset[k1]
+        hi = grid.cell_offset[k2] + grid.cell_count[k2]
+        w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
+        t_blk, f_blk = primary_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg)
+        t_slabs.append(t_blk.reshape(num_tiles, 64))
+        f_slabs.append(f_blk.reshape(num_tiles, 64))
+    t_cell = torch.stack(t_slabs, dim=1)                     # [T, NS, 64]
+    f_cell = torch.stack(f_slabs, dim=1)
+
+    if grid.heavy_faces.shape[0] > 0:
+        co = theavy.heavy_coeffs(vertices, faces, grid.heavy_faces,
+                                 grid.heavy_count, eye, grid.heavy_ranges)
+        table = tw.pack_heavy_windows(co)
+        t_hb, f_hb = heavy_primary_sweep(grid.heavy_count, table, rows,
+                                         cfg=cfg)
+        # K2 already reports face 2^31-1 wherever t is 3e38 (no hit).
+        t_h = t_hb.reshape(num_tiles, 64)
+        f_h = f_hb.reshape(num_tiles, 64)
+        # Heavy faces live in slab 0 (the split needs num_slabs == 1).
+        t_c0, f_c0 = t_cell[:, 0], f_cell[:, 0]
+        take_h = (t_h < t_c0) | ((t_h == t_c0) & (f_h < f_c0))
+        t_cell[:, 0] = torch.where(take_h, t_h, t_c0)
+        f_cell[:, 0] = torch.where(take_h, f_h, f_c0)
+
+    # Sequential slab scan with the isWithin(done) state machine.
+    mvp = camcoords[48:64]
+    oldt = torch.full((num_tiles, 64), 99999999.9, dtype=torch.float32,
+                      device=dev)
+    win = torch.full((num_tiles, 64), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((num_tiles, 64), dtype=torch.int32, device=dev)
+    for s in range(NS):
+        m, wk = t_cell[:, s], f_cell[:, s]
+        upd = (done != 2) & (m < oldt)
+        oldt = torch.where(upd, m, oldt)
+        win = torch.where(upd, wk, win)
+        done = torch.where(upd, 1, done)
+        pt = eye[None, None, :] + oldt[..., None] * rays_t
+        zbin = torch.floor(transform_point(mvp, pt)[..., 2] * NS)
+        done = torch.where((done == 1) & (zbin == float(s)), 2, done)
+
+    ok = done == 2
+    face_id = torch.where(ok, win, -2).to(torch.int32)
+
+    # Geometric normals from a per-face table (the same op sequence per
+    # face as per pixel, so bitwise equal to the per-pixel form).
+    fv = vertices[faces.long()]
+    fe1 = normalize(fv[:, 1] - fv[:, 0])
+    fe2 = normalize(fv[:, 2] - fv[:, 0])
+    fnrm = normalize(cross(fe1, fe2))
+    if cfg.quirks.abs_normal:
+        fnrm = torch.abs(fnrm)
+    nrm = fnrm[torch.clamp(face_id, min=0).long()]
+    nrm = torch.where(ok[..., None], nrm, -1.0)
+    t_out = torch.where(ok, oldt, -1.0)
+
+    return dict(t=untile(t_out, cfg, tiles_x, tiles_y),
+                face_id=untile(face_id, cfg, tiles_x, tiles_y),
+                normal=untile(nrm, cfg, tiles_x, tiles_y),
+                ray_dir=dirs)
