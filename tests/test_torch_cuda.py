@@ -6,10 +6,13 @@ on a machine without it run it without the JAX test harness:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: none.  The kernels are compiled without FMA contraction and
-with IEEE division and square root (kernels/_build.py), so (t, face) are
-bitwise equal and shadow flags exact.  The whole small frame on the card
-must also equal the same frame rendered on the CPU.
+Tolerance: none for the kernels and frames.  The kernels are compiled
+without FMA contraction and with IEEE division and square root
+(kernels/_build.py), so (t, face) are bitwise equal and shadow flags
+exact.  The whole small frame on the card must also equal the same frame
+rendered on the CPU.  The differentiable step's image must too; its loss
+is a mean (rtol 1e-5, atol 1e-7) and its gradients sums over pixels in
+another order on each device (within 1e-5 * max|g|).
 """
 
 import dataclasses
@@ -142,3 +145,64 @@ def test_frame_on_card_equals_cpu(card):
         np.testing.assert_array_equal(outs[0]["primary"][key].cpu().numpy(),
                                       outs[1]["primary"][key].numpy(),
                                       err_msg=key)
+
+
+def test_render_and_grad_card_equals_cpu(card):
+    """render_and_grad on the rotated Cornell box (tests/test_grad.py:
+    154-182) at 64^2, on the card and on the CPU."""
+    from ugrt_torch import bridge
+    from ugrt_torch.diff.render_grad import render_and_grad
+
+    a, b = 0.11, 0.07
+    rx = np.asarray([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                     [0, np.sin(a), np.cos(a)]], dtype=np.float32)
+    ry = np.asarray([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                     [-np.sin(b), 0, np.cos(b)]], dtype=np.float32)
+    scene = procedural.cornell_box(subdiv=2)
+    scene = dataclasses.replace(scene, vertices=np.ascontiguousarray(
+        scene.vertices @ (rx @ ry).T))
+    cfg = dataclasses.replace(RenderConfig(), screen_width=64,
+                              screen_height=64, grid_x=8, grid_y=8)
+    light = cam.CameraSpec(eye=(0.1, 0.85, 0.4), look_at=(0.0, -1.0, 0.3),
+                           up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+    target = np.random.default_rng(0).uniform(0, 0.3, (64, 64, 3)).astype(
+        np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = bridge.scene_to_torch(scene, dev)
+        cc = bridge.camcoords_to_torch(CAMERA, cfg.fovy_deg, 1.0, dev)
+        lcc = bridge.camcoords_to_torch(light, cfg.fovy_deg, 1.0, dev)[None]
+        outs.append(render_and_grad(
+            t["vertices"], t["materials"], t["faces"], t["mat_index"], cc,
+            lcc, bridge.from_numpy(light.eye, dev, np.float32),
+            bridge.from_numpy(target, dev), cfg=cfg,
+            capacity=cfg.pair_capacity(scene.num_faces), num_lights=1,
+            use_spot=True))
+    got, want = outs
+    assert not bool(got["overflow"])
+    np.testing.assert_array_equal(got["color"].cpu().numpy(),
+                                  want["color"].numpy())
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5, atol=1e-7)
+    for key in ("grad_vertices", "grad_materials"):
+        w = want[key].numpy()
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(got[key].cpu().numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=key)
+
+
+@pytest.mark.parametrize("name,sizes", [
+    ("micro_mxu", dict(n_items=64)),
+    ("pallas_micro", dict(cap8=4096, n_items=640, n_tiles=64)),
+    ("micro_heavy", dict(nb=65)),
+])
+def test_probes_match_plain_on_card(card, name, sizes):
+    """The probes S1-S3 at small sizes: every variant bitwise equal to its
+    plain version (S1 mma within its bound), as chip_smoke's phase 7
+    checks at the scripts' sizes."""
+    import importlib
+
+    mod = importlib.import_module(f"ugrt_torch.micro.{name}")
+    records = mod.run(iters=1, workload=mod.make_workload(card, **sizes))
+    assert records
+    assert not [r for r in records if r["mismatches"]]

@@ -33,6 +33,7 @@ from ugrt_torch.kernels import shadow_sweep as k3
 from ugrt_torch.trace import heavy as theavy_t
 from ugrt_torch.trace import primary as tprim_t
 from ugrt_torch.trace import windows as tw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INSIDE_BOX = cam.CameraSpec(eye=(0.05, 0.03, 0.4), look_at=(0.1, 0.04, -1.0),
                             up=(0.02, 1.0, 0.013), near=0.1, far=100.0)

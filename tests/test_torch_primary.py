@@ -25,6 +25,7 @@ from ugrt.trace import primary as tprim
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
 from ugrt_torch.trace import primary as tprim_t
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INSIDE_BOX = cam.CameraSpec(eye=(0.05, 0.03, 0.4), look_at=(0.1, 0.04, -1.0),
                             up=(0.02, 1.0, 0.013), near=0.1, far=100.0)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from ugrt.ref import oracle
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

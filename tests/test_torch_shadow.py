@@ -26,6 +26,7 @@ from ugrt.trace import shadow as tshadow
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
 from ugrt_torch.trace import shadow as tshadow_t
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _cc(spec, cfg):

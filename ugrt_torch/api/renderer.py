@@ -40,31 +40,11 @@ def render_frame(vertices, faces, mat_index, materials, camcoords,
                                          cfg=cfg, capacity=capacity)
     primary = tprimary.trace_primary(vertices, faces, camcoords, grid, cfg)
 
+    shadowed, light_overflow, shade_cc = tshadow.shadow_pass(
+        vertices, faces, primary, camcoords, light_camcoords, cfg,
+        capacity=capacity, num_lights=num_lights)
     eye = camcoords[0:3]
-    shadowed = torch.zeros((cfg.screen_height, cfg.screen_width),
-                           dtype=torch.int32, device=vertices.device)
-    overflow = grid.overflow
-    shade_cc = camcoords
-    mode = cfg.light_grid_mode
-    # "extent" clamps geometry into edge cells and needs headroom (ugrt
-    # renderer.py:70-75).
-    lcap = 2 * capacity if mode == "extent" else capacity
-    for li in range(num_lights):
-        lcc = light_camcoords[li]
-        x_max = y_max = window = None
-        if mode == "extent":
-            x_max, y_max = tshadow.light_extents(primary, eye, lcc, cfg)
-        elif mode == "windowed":
-            window = tshadow.light_window(primary, eye, lcc, cfg)
-        lgrid = gbuild.build_spherical_grid(
-            vertices, faces, lcc, cfg=cfg, capacity=lcap, x_max=x_max,
-            y_max=y_max, window=window)
-        sh = tshadow.trace_shadow(vertices, faces, lcc, lgrid, primary, eye,
-                                  cfg, x_max=x_max, y_max=y_max,
-                                  window=window)
-        shadowed = torch.maximum(shadowed, sh)
-        overflow = overflow | lgrid.overflow
-        shade_cc = lcc
+    overflow = grid.overflow | light_overflow
 
     shade = shaders.spotlight if use_spot else shaders.lambert
     color = shade(primary, shade_cc, light_position, eye, mat_index,

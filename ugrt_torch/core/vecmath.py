@@ -43,6 +43,15 @@ def acos(x):
     return torch.acos(x.double()).to(x.dtype)
 
 
+def absolute(x):
+    """|x| with ugrt's (JAX's) derivative at the kink: +1 at x = +-0, where
+    torch.abs has 0.  The forward equals torch.abs bit for bit (x + 0.0
+    turns -0 into +0).  The port's gradients follow ugrt's at the
+    reference's abs quirks, which axis-aligned geometry puts exactly on
+    the kink (a normal component of 0)."""
+    return torch.where(x >= 0, x + 0.0, -x)
+
+
 def magnitude(a):
     """getMagnitude (grid_kernel.cu:354-363)."""
     return sqrt(dot(a, a))

@@ -1,7 +1,8 @@
 """Build the CUDA kernels from ``ugrt_torch/csrc`` at first use.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
-plain C interface, loaded with ctypes.  Each entry point takes device
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ctypes.  Each entry point takes device
 pointers, sizes and the CUDA stream as plain integers and returns the
 ``cudaError_t`` of its launch.  The library lands in
 ``ugrt_torch/_build/`` under a name keyed by a hash of the sources and
@@ -11,7 +12,9 @@ launch.
 
 The flags pin the numerics the plain PyTorch versions reproduce: no FMA
 contraction (``-fmad=false``), IEEE division and square root, and
-denormals kept.
+denormals kept.  A kernel that needs more than 48 KB of shared memory
+opts in with ``cudaFuncSetAttribute`` in its C launcher; a refused
+launch comes back as the entry point's error and ``launch`` raises.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v",
 )
@@ -45,6 +48,13 @@ SIGNATURES = {
     "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
     "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _F, _F, _I, _I, _P,
                           _P),
+    # The probes S1-S3 (ugrt_torch/micro).
+    "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
+    "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
+    "ugrt_heavy_sweep_v3": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
+    "ugrt_coeff_mt_fma": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
+    "ugrt_coeff_mt_mma": (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P),
+    "ugrt_tile_sweep": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -73,21 +83,39 @@ def _nvcc() -> str:
 
 def build() -> tuple[Path, float]:
     """Compile the library unless it exists; returns (path, seconds spent
-    compiling).  A failed compile raises with nvcc's output."""
+    in nvcc).  A failed compile raises with nvcc's output."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    logs = [o.with_suffix(".log") for o in objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src, obj, log in zip(srcs, objs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT))
+    codes = [p.wait() for p in procs]
+    text = "".join(f"== {s.name}\n{log.read_text()}"
+                   for s, log in zip(srcs, logs))
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if not any(codes):
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(o) for o in objs)], capture_output=True, text=True)
+        codes.append(link.returncode)
+        text += link.stdout + link.stderr
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    for path in (*objs, *logs):
+        path.unlink(missing_ok=True)
+    if any(codes):
+        raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{text}")
+    out.with_suffix(".log").write_text(text)
     os.replace(tmp, out)
     return out, seconds
 

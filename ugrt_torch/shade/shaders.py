@@ -4,10 +4,10 @@ spotlight, u8 quantization and shadow darkening.
 Semantics as in ugrt: view-space transforms use the 3x3 rotation of the
 shade-time camera (the last light's, main.cu:170); ambient 0.5, diffuse
 1.0; Ka aliases Kd and the diffuse term takes |N.L| under the quirks;
-misses shade black; shadowed pixels divide their u8 RGB by 3.  Plain
-indexing fetches the materials (ugrt's TPU row-gather branch,
-shaders.py:58-80, has no counterpart).  ``face_shade_meta`` and
-``perlin_shade`` are not on the forward frame path yet.
+misses shade black; shadowed pixels divide their u8 RGB by 3.
+``gather.gather_rows`` fetches the materials, with a fixed-point backward
+that sums exactly in any order (ugrt's TPU row gather, shaders.py:58-80,
+sums by a one-hot matmul).  ``perlin_shade`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,22 +18,42 @@ import numpy as np
 import torch
 
 from ugrt.config import RenderConfig
-from ugrt_torch.core.vecmath import dot, normalize, rotate_basis
+from ugrt_torch.core.gather import gather_rows
+from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
 from ugrt_torch.grid import binning
+
+
+def face_shade_meta(mat_index, num_materials: int):
+    """[F, 2] f32 per-face shading metadata: (material id, validity); ids
+    below 2^24 are exact in f32.  ``refine_primary`` carries it to the
+    pixels as ``aux`` through its corner gather, so shading needs no
+    mat_index gather of its own (ugrt shaders.py:32-41)."""
+    valid = (mat_index >= 0) & (mat_index < num_materials)
+    return torch.stack([mat_index.to(torch.float32),
+                        valid.to(torch.float32)], dim=1)
 
 
 def shade_core(primary, shade_camcoords, light_position, primary_eye,
                mat_index, materials, cfg: RenderConfig, drop_off):
     """lambert_color_pixel / lambert_color_drop_off_pixel
     (shader_kernel.cu:46-128) with lambertian_shade's material fetch and
-    clamp (:165-221).  Returns f32 RGB [H, W, 3] in [0, 1]."""
+    clamp (:165-221).  Returns f32 RGB [H, W, 3] in [0, 1].  Takes the
+    pixels' (material id, validity) from ``primary["aux"]`` when the
+    refine pass carried it (``face_shade_meta``), else from mat_index."""
     mv = shade_camcoords[16:32]
     num_materials = materials.shape[0]
     tri = primary["face_id"]
-    idx = torch.where(tri >= 0, mat_index[torch.clamp(tri, min=0).long()],
-                      -1)
-    valid = (idx >= 0) & (idx < num_materials)
-    mats = materials[torch.clamp(idx, min=0).long()]
+    if "aux" in primary:
+        rows = primary["aux"]
+        idx = rows[..., 0].to(torch.int32)
+        valid = (tri >= 0) & (rows[..., 1] > 0)
+        mats = gather_rows(materials,
+                           torch.clamp(idx, 0, num_materials - 1).long())
+    else:
+        idx = torch.where(tri >= 0,
+                          mat_index[torch.clamp(tri, min=0).long()], -1)
+        valid = (idx >= 0) & (idx < num_materials)
+        mats = gather_rows(materials, torch.clamp(idx, min=0).long())
     ka = mats[..., 3:6] if cfg.quirks.ka_from_kd else mats[..., 0:3]
     kd = mats[..., 3:6]
 
@@ -46,10 +66,12 @@ def shade_core(primary, shade_camcoords, light_position, primary_eye,
 
     ndotl = dot(light_dir, normal_view)
     if cfg.quirks.abs_n_dot_l:
-        ndotl = torch.abs(ndotl)
+        ndotl = absolute(ndotl)
     diffuse = torch.where(ndotl > 0, ndotl, 0.0)[..., None]
     color = ka * 0.5 * drop_off + kd * diffuse * drop_off
-    color = torch.clamp(color, max=1.0)
+    # min(color, 1) splits the gradient 0.5/0.5 at color == 1, as ugrt's
+    # jnp.clip does (torch.clamp would pass all of it).
+    color = torch.minimum(color, torch.ones((), device=color.device))
     return torch.where(valid[..., None] & (t > 0), color, 0.0)
 
 

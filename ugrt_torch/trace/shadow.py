@@ -25,6 +25,7 @@ import torch
 from ugrt.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize, sqrt
 from ugrt_torch.grid import binning
+from ugrt_torch.grid import build as gbuild
 from ugrt_torch.grid.build import DeviceGrid
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.trace import heavy as theavy
@@ -182,3 +183,41 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
     shadowed = torch.empty((n,), dtype=torch.int32, device=dev)
     shadowed[perm] = shadow_blocks.reshape(n_pad)[:n]
     return shadowed.reshape(H, W)
+
+
+def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
+                cfg: RenderConfig, *, capacity: int, num_lights: int):
+    """Every light's shadow flags, OR-ed, as the reference's frame loop
+    runs them (main.cu:160-201): per light, the light window or extents
+    of ``cfg.light_grid_mode``, the spherical grid, then ``trace_shadow``.
+
+    Returns (shadowed [H, W] int32, overflow (0-d bool: a light grid's
+    pair or heavy-list capacity was exceeded), the camcoords that shade
+    the frame: the last light's, else the camera's).
+    """
+    H, W = primary["t"].shape
+    eye = camcoords[0:3]
+    dev = camcoords.device
+    shadowed = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    shade_cc = camcoords
+    mode = cfg.light_grid_mode
+    # "extent" clamps geometry into edge cells and needs headroom (ugrt
+    # renderer.py:70-75).
+    lcap = 2 * capacity if mode == "extent" else capacity
+    for li in range(num_lights):
+        lcc = light_camcoords[li]
+        x_max = y_max = window = None
+        if mode == "extent":
+            x_max, y_max = light_extents(primary, eye, lcc, cfg)
+        elif mode == "windowed":
+            window = light_window(primary, eye, lcc, cfg)
+        lgrid = gbuild.build_spherical_grid(
+            vertices, faces, lcc, cfg=cfg, capacity=lcap, x_max=x_max,
+            y_max=y_max, window=window)
+        sh = trace_shadow(vertices, faces, lcc, lgrid, primary, eye, cfg,
+                          x_max=x_max, y_max=y_max, window=window)
+        shadowed = torch.maximum(shadowed, sh)
+        overflow = overflow | lgrid.overflow
+        shade_cc = lcc
+    return shadowed, overflow, shade_cc
