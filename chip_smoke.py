@@ -6,14 +6,20 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 Phases (each prints a line; any failure raises and exits non-zero):
  1. CUDA must be available; prints the card's name and power limit.
  2. Builds the CUDA kernels from ugrt_torch/csrc with nvcc.
- 3. Renders one flagship frame (1024^2, 128x128 grid, the 75k-triangle
-    procedural cathedral, windowed light grid), records the inputs each
-    sweep kernel gets on that path, and holds every kernel against its
-    plain PyTorch version on them: K1/K2 bitwise, K3 exact.  Prints
-    mismatches and CUDA-event ms of kernel vs plain.
- 4. Renders the Cornell box at 128^2 on the card and holds the u8 image
-    and shadow mask against the numpy oracle (ugrt.ref.oracle): at most
-    0.1% of pixels may differ.
+ 3. Renders one flagship frame per light-grid mode (1024^2, 128x128
+    grid, the 75k-triangle procedural cathedral, spot; windowed, then
+    reference), records the inputs each sweep kernel gets on that path,
+    and holds every kernel against its plain PyTorch version on them:
+    K1/K2 bitwise, K3 exact; K3 also on a synthetic skewed case (one
+    ray block spanning hundreds of windows beside empty ranges) and on
+    its all-occluded twin.  Prints mismatches, CUDA-event ms of kernel
+    vs plain, the (ray, row) tests the inputs need against those the
+    kernel walks, and the bound: the larger of the needed flops at the
+    card's published f32 peak and the bytes at its memory rate.
+ 4. Renders the Cornell box at 128^2 on the card and on the CPU (where
+    the sweeps run their plain versions); at most 0.1% of pixels of the
+    u8 image and of the shadow mask may differ.  The CPU frame is held
+    to the numpy oracle by the tests (tests/test_torch_render.py).
  5. Flagship frames through Renderer.render on the card, windowed then
     reference light grid, 4 frames each; every kernel must have launched
     and no grid capacity may overflow.  Prints per-frame ms, then the
@@ -29,12 +35,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
     within 1e-5 * max|g| (sums in another order).
  7. The probes S1-S3 (ugrt_torch.micro) at their scripts' sizes: every
     variant held against its plain version (S1 fma, S2, S3 bitwise; S1
-    mma within its bound), then timed; every probe kernel must have
-    launched.
+    mma within its bound), then timed with their bounds; S1's three
+    products also as one torch.bmm (the library yardstick, "highest"
+    and TF32); every probe kernel must have launched.
 Then one JSON line with the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Imports no JAX.  The scenes are procedural and made from --seed.
+Imports no JAX and nothing of ugrt.  The scenes are procedural and made
+from --seed.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ CAMERA = dict(eye=(3.0, 15.0, 5.0), look_at=(13.0, 13.0, 3.0),
               up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
 LIGHT = dict(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
              up=(0.0, 1.0, 0.0), near=0.1, far=100.0)
-ORACLE_PIXEL_BOUND = 1e-3      # README.md:108-113: knife-edge rays
+CPU_PIXEL_BOUND = 1e-3         # README.md:108-113: knife-edge rays
 FRAMES = 4                     # per light mode; frame 1 is the warmup
 STEPS = 4                      # timed fwd+bwd steps after one warm-up
 GRAD_REL = 1e-5                # card vs CPU gradients, times max|g|
@@ -62,6 +70,35 @@ CORNELL_CAMERA = dict(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
                       up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
 CORNELL_LIGHT = dict(eye=(0.1, 0.85, 0.4), look_at=(0.0, -1.0, 0.3),
                      up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+# The 128^2 Cornell frame of phase 4 (tests/conftest.py's cameras).
+GENERIC_CAMERA = dict(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
+                      up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
+GENERIC_LIGHT = dict(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
+                     up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): f32 outside the tensor cores, TF32 dense, HBM3.
+PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
+HBM_BYTES_S = 3.35e12
+# f32 operations per (ray, row) test, counted in each kernel body
+# (csrc/): sweeps count + - * / sqrt, compares not; S2 its 9-step chain.
+FLOPS_K1 = 43       # pvec 9, det 5, 1/det, u 6, qvec 9, v 6, t 6, u+v
+FLOPS_K2 = 21       # det, up, vp 5 each, det2, ud, vd, 1/det, t, ud+vd
+FLOPS_K3 = 30       # det 5, 1/det, u 6, v 6, t, u+v, t*d 3, |t*d| 6, +eps
+FLOPS_S2 = 41       # 1 product, then 8 x (mul, add, mul, sub, abs)
+NO_LIBRARY = {
+    "primary_sweep": "no single PyTorch call computes a per-ray lex-min "
+                     "(t, face) over cell-keyed triangle windows",
+    "heavy_primary_sweep": "no single PyTorch call computes a per-ray "
+                           "lex-min (t, face) over footprint-gated faces",
+    "shadow_sweep": "no single PyTorch call computes a per-ray OR of "
+                    "cell- or box-gated occlusion tests",
+    "tile_sweep": "no single PyTorch call computes the 9-step chain's "
+                  "min and first argmin over gathered tiles",
+    "heavy_sweep": "no single PyTorch call computes a per-ray lex-min "
+                   "(t, face) over footprint-gated faces",
+}
 
 
 def say(msg):
@@ -87,7 +124,99 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def capture_sweep_inputs(render):
+def bound(flops, nbytes, peak=PEAK_F32):
+    """(ms, "operations" or "bytes"): the least time of the work at the
+    card's published rates."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def keyed_tests(tri, key_col, rays, ray_key_col):
+    """Sum over rays of the real rows (not all-zero coefficients) whose
+    cell key equals the ray's."""
+    import torch
+
+    rows = tri.reshape(-1, tri.shape[-1])
+    real = rows[:, :key_col].abs().amax(dim=1) > 0
+    keys = rows[:, key_col].long()
+    rk = rays.reshape(-1, rays.shape[-1])[:, ray_key_col].long()
+    size = int(max(int(keys.max()), int(rk.max()), 0)) + 1
+    counts = torch.bincount(keys[real & (keys >= 0)], minlength=size)
+    rk = rk[rk >= 0]
+    return int(counts[rk].sum())
+
+
+def box_tests(boxes, rays, gx_col, grid):
+    """Sum over rays of the rows whose footprint box (x0, x1, y0, y1)
+    holds the ray's cell (gx, gy), by a summed-area table of the rays'
+    cells; empty boxes (x0 > x1) count nothing."""
+    import torch
+
+    r = rays.reshape(-1, rays.shape[-1])
+    gx, gy = r[:, gx_col].long(), r[:, gx_col + 1].long()
+    ok = (gx >= 0) & (gx < grid) & (gy >= 0) & (gy < grid)
+    hist = torch.bincount(gx[ok] * grid + gy[ok], minlength=grid * grid)
+    sat = torch.zeros((grid + 1, grid + 1), dtype=torch.int64,
+                      device=rays.device)
+    sat[1:, 1:] = hist.reshape(grid, grid).cumsum(0).cumsum(1)
+    b = boxes.reshape(-1, 4).long()
+    x0, x1 = b[:, 0].clamp(0, grid - 1), b[:, 1].clamp(-1, grid - 1)
+    y0, y1 = b[:, 2].clamp(0, grid - 1), b[:, 3].clamp(-1, grid - 1)
+    live = (x0 <= x1) & (y0 <= y1)
+    x0, x1, y0, y1 = (v[live] for v in (x0, x1, y0, y1))
+    return int((sat[x1 + 1, y1 + 1] - sat[x0, y1 + 1] - sat[x1 + 1, y0]
+                + sat[x0, y0]).sum())
+
+
+def window_walk(w_lo, w_hi, nw):
+    """Windows the ranges walk, clamped as the kernels clamp them."""
+    import torch
+
+    n = torch.clamp(w_hi.long(), max=nw - 1) - torch.clamp(w_lo.long(),
+                                                           min=0) + 1
+    return n.clamp(min=0)
+
+
+def sweep_work(site, args, kw, grid):
+    """(needed tests, walked tests, flops, bytes, what the ranges are) of
+    one captured sweep call."""
+    if site.startswith("primary_sweep"):
+        tri, rays, w_lo, w_hi = args
+        walk = window_walk(w_lo, w_hi, tri.shape[0])
+        need = keyed_tests(tri, 9, rays, 3)
+        walked = int(walk.sum()) * tri.shape[1] * 128
+        out = rays.shape[0] * 128 * 8
+        return (need, walked, need * FLOPS_K1,
+                nbytes(*args) + out,
+                f"{int(walk.sum())} block x window items, max "
+                f"{int(walk.max())} per block")
+    if site.startswith("heavy_primary_sweep"):
+        count, table, rays = args
+        need = box_tests(table[10:14].T, rays, 4, grid)
+        live = min(-(-int(count) // 128), table.shape[1] // 128)
+        walked = live * 128 * rays.shape[0] * 128
+        out = rays.shape[0] * 128 * 8
+        return (need, walked, need * FLOPS_K2, nbytes(*args) + out,
+                f"every block x {live} live windows")
+    tri, rays, w_lo, w_hi = args
+    walk = window_walk(w_lo, w_hi, tri.shape[0])
+    if kw.get("box"):
+        need = box_tests(tri[..., 11:15], rays, 5, grid)
+    else:
+        need = keyed_tests(tri, 10, rays, 4)
+    walked = int(walk.sum()) * tri.shape[1] * 128
+    return (need, walked, need * FLOPS_K3,
+            nbytes(*args) + rays.shape[0] * 128 * 4,
+            f"{int(walk.sum())} block x window items, max "
+            f"{int(walk.max())} per block")
+
+
+def capture_sweep_inputs(render, prefix=""):
     """Run render() once with each sweep wrapper wrapped by a recorder;
     return {site: (wrapper, plain, args, kwargs)} with cloned inputs."""
     import torch
@@ -106,7 +235,7 @@ def capture_sweep_inputs(render):
 
     def recorder(name, fn, plain):
         def record(*args, **kwargs):
-            site = name + (" box=True" if kwargs.get("box") else "")
+            site = prefix + name + (" box=True" if kwargs.get("box") else "")
             if site not in sites:
                 sites[site] = (fn, plain, tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
@@ -123,6 +252,70 @@ def capture_sweep_inputs(render):
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     return sites
+
+
+def kernel_phase(scene, flagship, camera, light):
+    """Phase 3: every sweep kernel against its plain version on the
+    inputs the flagship frames give it (and K3 on the synthetic cases).
+    Returns {site: record}."""
+    import torch
+
+    from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.micro.k3_chunks import skewed_case
+
+    sites = {}
+    for mode, prefix in (("windowed", ""), ("reference", "reference: ")):
+        r = Renderer(scene, dataclasses.replace(flagship,
+                                                light_grid_mode=mode),
+                     device="cuda")
+        sites.update(capture_sweep_inputs(
+            lambda: r.render(camera, [light], light.eye, use_spot=True),
+            prefix))
+        del r
+    expect = {"primary_sweep", "heavy_primary_sweep", "shadow_sweep",
+              "shadow_sweep box=True"}
+    if not expect <= set(sites):
+        fail(f"phase 3: sweep sites seen {sorted(sites)}, expected "
+             f"{sorted(expect)}")
+    for name, occ in (("skewed", False), ("skewed all-occluded", True)):
+        sites[f"shadow_sweep {name}"] = (
+            k3.shadow_sweep, k3.shadow_sweep_plain,
+            skewed_case("cuda", 0, occ), dict(cfg=flagship))
+
+    results = {}
+    for site, (fn, plain, a, kw) in sites.items():
+        out_k = fn(*a, **kw)
+        out_p = plain(*a, **kw)
+        torch.cuda.synchronize()
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        mism = sum(int((x != y).sum()) for x, y in zip(out_k, out_p))
+        err = max(float((x.double() - y.double()).abs().max())
+                  for x, y in zip(out_k, out_p))
+        ms = cuda_ms(lambda: fn(*a, **kw), 20)
+        # The plain versions are timed on the sites the kernels line
+        # reports (the windowed frame's) only: they walk every item.
+        plain_ms = (cuda_ms(lambda: plain(*a, **kw), 2) if site in expect
+                    else float("nan"))
+        need, walked, flops, nbyte, items = sweep_work(site.split(": ")[-1],
+                                                       a, kw,
+                                                       flagship.grid_x)
+        b_ms, b_by = bound(flops, nbyte)
+        shapes = ", ".join("x".join(str(d) for d in x.shape) or "scalar"
+                           for x in a if isinstance(x, torch.Tensor))
+        say(f"phase 3: {site} ({shapes}; {items}): {mism} mismatches, max "
+            f"|diff| {err}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+            f"needed tests {need}, walked {walked} "
+            f"({walked / max(need, 1):.2f}x); {flops} flops, {nbyte} bytes: "
+            f"bound {b_ms:.5f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the "
+            f"kernel's time)")
+        if mism:
+            fail(f"phase 3: {site} disagrees with its plain version")
+        results[site] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                             bound_ms=b_ms, bound_by=b_by, needed_tests=need,
+                             walked_tests=walked)
+    return results
 
 
 def profile_frames(scene, flagship, camera, light, lp):
@@ -162,7 +355,7 @@ def rotated_cornell():
     y, so that no wall is axis-aligned (tests/test_grad.py:154-170)."""
     import numpy as np
 
-    from ugrt.scene import procedural
+    from ugrt_torch.scene import procedural
 
     sc = procedural.cornell_box(subdiv=2)
     a, b = CORNELL_ANGLES
@@ -200,7 +393,7 @@ def step_phase(scene, flagship, camera, light, kernels):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ugrt.core import camera as cam
+    from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.diff.render_grad import render_and_grad
 
     cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
@@ -249,6 +442,8 @@ def step_phase(scene, flagship, camera, light, kernels):
         f"rays/s fwd+bwd); two identical steps bitwise equal: {same}")
     if min(launches.values()) <= 0:
         fail("phase 6: a kernel of the step was never launched")
+    if not same:
+        fail("phase 6: two identical steps differ")
     del outs
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -272,8 +467,8 @@ def step_phase(scene, flagship, camera, light, kernels):
     box = rotated_cornell()
     kw = dict(cfg=small, capacity=small.pair_capacity(box.num_faces),
               num_lights=1, use_spot=True)
-    c_cam = cam.CameraSpec(**CORNELL_CAMERA)
-    c_light = cam.CameraSpec(**CORNELL_LIGHT)
+    c_cam = CameraSpec(**CORNELL_CAMERA)
+    c_light = CameraSpec(**CORNELL_LIGHT)
     got, want = (render_and_grad(**step_inputs(box, small, c_cam, c_light, d),
                                  **kw) for d in ("cuda", "cpu"))
     loss_g, loss_w = float(got["loss"]), float(want["loss"])
@@ -308,6 +503,53 @@ PROBES = [
 ]
 
 
+def probe_work(mod, workload):
+    """{kernel: (flops, bytes, peak, library_ms, extra)} of a probe's
+    workload at its script's size: the bound's inputs and, for S1, the
+    torch.bmm yardstick of its three products."""
+    import torch
+
+    if mod == "micro_mxu":
+        items, tri, rays = workload
+        n, pairs = items.shape[0], items.shape[0] * 256 * 128
+        out = 3 * pairs * 4
+        read = nbytes(tri) + nbytes(rays)
+        # [3n, 256, 8] . [3n, 8, 128]: the three products per item.
+        a = tri[items.long()].reshape(n, 3, 8, 256).transpose(2, 3).reshape(
+            3 * n, 256, 8).contiguous()
+        b = rays[items.long() % rays.shape[0]][:, None].expand(
+            n, 3, 8, 128).reshape(3 * n, 8, 128).contiguous()
+        lib = {}
+        for name, tf32 in (("highest", False), ("tf32", True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            lib[name] = cuda_ms(lambda: torch.bmm(a, b), 5)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del a, b
+        torch.cuda.empty_cache()
+        extra = {"library_tf32_ms": lib["tf32"]}
+        return {"coeff_mt_fma": (pairs * 18, read + out, PEAK_F32,
+                                 lib["highest"], extra),
+                "coeff_mt_mma": (pairs * 3 * 16, read + out, PEAK_TF32,
+                                 lib["highest"], extra)}
+    if mod == "pallas_micro":
+        offs, tiles, tri, rays = workload
+        rows = torch.zeros(tri.shape[0] + 128, dtype=torch.bool,
+                           device=tri.device)
+        rows[(offs.long()[:, None] + torch.arange(
+            128, device=tri.device)).reshape(-1)] = True
+        read = (int(rows.sum()) * tri.shape[1] * 4
+                + int(torch.unique(tiles).numel()) * 8 * 128 * 4
+                + nbytes(offs, tiles))
+        n = offs.shape[0]
+        return {"tile_sweep": (n * 128 * 128 * FLOPS_S2,
+                               read + n * 128 * 8, PEAK_F32, None, {})}
+    count, table, rays = workload
+    need = box_tests(table[10:14].T[:int(count)], rays, 4, 128)
+    nbyte = nbytes(table, rays) + rays.shape[0] * 128 * 8
+    return {f"heavy_sweep_v{i}": (need * FLOPS_K2, nbyte, PEAK_F32, None,
+                                  {"needed_tests": need}) for i in (1, 2, 3)}
+
+
 def probe_phase():
     """Phase 7: run the probes' entry points; returns their kernels-line
     entries."""
@@ -326,10 +568,13 @@ def probe_phase():
                 "heavy_sweep_v3": heavy_variants.heavy_sweep_v3}
     for w in wrappers.values():
         w.launches = 0
-    records = []
+    records, work = [], {}
     for name, mod in mods.items():
         t0 = time.perf_counter()
-        recs = mod.run()
+        workload = mod.make_workload(torch.device("cuda"))
+        recs = mod.run(workload=workload)
+        work.update(probe_work(name, workload))
+        del workload
         torch.cuda.empty_cache()
         for r in recs:
             extra = "".join(f", {k} {v!r}" for k, v in r.items() if k not in (
@@ -351,12 +596,21 @@ def probe_phase():
     for name, _, source, replaces, main_variant in PROBES:
         recs = [r for r in records if r["kernel"] == name]
         main = next(r for r in recs if r["variant"] == main_variant)
+        flops, nbyte, peak, lib_ms, extra = work[name]
+        b_ms, b_by = bound(flops, nbyte, peak)
+        say(f"phase 7: {name}: {flops} flops, {nbyte} bytes: bound "
+            f"{b_ms:.5f} ms by {b_by}; {main['ms']:.4f} ms"
+            + (f"; torch.bmm {lib_ms:.4f} ms (highest), "
+               f"{extra['library_tf32_ms']:.4f} ms (TF32)" if lib_ms else ""))
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "variant": main_variant,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **({} if lib_ms else {"library_none": NO_LIBRARY[
+                "heavy_sweep" if name.startswith("heavy") else name]}),
+            **extra, "variant": main_variant,
             "variants": {r["variant"]: r["ms"] for r in recs}})
     return entries
 
@@ -383,15 +637,14 @@ def main(argv=None):
 
     import numpy as np
 
-    from ugrt.config import RenderConfig
-    from ugrt.core import camera as cam
-    from ugrt.ref import oracle
-    from ugrt.scene import procedural
     from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.config import RenderConfig
+    from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.kernels import _build
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.scene import procedural
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -409,8 +662,8 @@ def main(argv=None):
     for ln in ptxas:
         say(f"  ptxas: {ln}")
 
-    camera = cam.CameraSpec(**CAMERA)
-    light = cam.CameraSpec(**LIGHT)
+    camera = CameraSpec(**CAMERA)
+    light = CameraSpec(**LIGHT)
     lp = LIGHT["eye"]
     flagship = RenderConfig()            # 1024^2, 128x128 grid, 1 slab
     t0 = time.perf_counter()
@@ -418,75 +671,28 @@ def main(argv=None):
     say(f"  scene: procedural cathedral, {scene.num_faces} faces, seed "
         f"{args.seed} ({time.perf_counter() - t0:.1f} s)")
 
-    # Phase 3: every kernel against its plain version, on the inputs the
-    # flagship windowed frame gives it.
-    windowed = dataclasses.replace(flagship, light_grid_mode="windowed")
-    r = Renderer(scene, windowed, device="cuda")
-    sites = capture_sweep_inputs(
-        lambda: r.render(camera, [light], lp, use_spot=True))
-    expect = {"primary_sweep", "heavy_primary_sweep", "shadow_sweep",
-              "shadow_sweep box=True"}
-    if set(sites) != expect:
-        fail(f"phase 3: sweep sites seen {sorted(sites)}, expected "
-             f"{sorted(expect)}")
-    results = {}
-    for site, (fn, plain, a, kw) in sites.items():
-        out_k = fn(*a, **kw)
-        out_p = plain(*a, **kw)
-        torch.cuda.synchronize()
-        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        mism = sum(int((x != y).sum()) for x, y in zip(out_k, out_p))
-        err = max(float((x.double() - y.double()).abs().max())
-                  for x, y in zip(out_k, out_p))
-        ms = cuda_ms(lambda: fn(*a, **kw), 20)
-        plain_ms = cuda_ms(lambda: plain(*a, **kw), 2)
-        shapes = ", ".join("x".join(str(d) for d in x.shape) or "scalar"
-                           for x in a if isinstance(x, torch.Tensor))
-        if len(a) == 4:
-            per_block = torch.clamp(a[3] - a[2] + 1, min=0)
-            items = (f"{int(per_block.sum())} block x window items, max "
-                     f"{int(per_block.max())} per block")
-        else:
-            items = "every block x every live window"
-        say(f"phase 3: {site} ({shapes}; {items}): "
-            f"{mism} mismatches, max |diff| {err}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms")
-        if mism:
-            fail(f"phase 3: {site} disagrees with its plain version")
-        results[site] = (ms, plain_ms, err)
-    del r, sites
+    # Phase 3: every kernel against its plain version.
+    results = kernel_phase(scene, flagship, camera, light)
 
-    # Phase 4: end to end against the numpy oracle, small frame.
+    # Phase 4: the small frame on the card against the port on the CPU.
     small = dataclasses.replace(flagship, screen_width=128,
                                 screen_height=128, grid_x=16, grid_y=16)
     box = procedural.cornell_box(subdiv=2)
-    g_cam = cam.CameraSpec(eye=(0.123, 0.071, 2.531),
-                           look_at=(-0.037, 0.011, 0.0),
-                           up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
-    g_light = cam.CameraSpec(eye=(0.13, 0.87, 0.52),
-                             look_at=(0.07, -1.0, 0.49), up=(0.0, 0.0, 1.0),
-                             near=0.1, far=100.0)
-    ores = oracle.render_frame(box, g_cam, [g_light], g_light.eye, small,
-                               use_spot=True)
-    out = Renderer(box, small, device="cuda").render(
-        g_cam, [g_light], g_light.eye, use_spot=True)
-    out_cpu = Renderer(box, small, device="cpu").render(
-        g_cam, [g_light], g_light.eye, use_spot=True)
+    g_cam, g_light = CameraSpec(**GENERIC_CAMERA), CameraSpec(**GENERIC_LIGHT)
+    out, out_cpu = (Renderer(box, small, device=d).render(
+        g_cam, [g_light], g_light.eye, use_spot=True) for d in ("cuda", "cpu"))
     img = out["image"].cpu().numpy()
     sh = out["shadowed"].cpu().numpy()
-    px_img = int((img != ores["image"]).any(axis=-1).sum())
-    px_sh = int((sh != ores["shadowed"]).sum())
-    px_cpu = int((img != out_cpu["image"].numpy()).any(axis=-1).sum())
+    px_img = int((img != out_cpu["image"].numpy()).any(axis=-1).sum())
+    px_sh = int((sh != out_cpu["shadowed"].numpy()).sum())
     n_px = img.shape[0] * img.shape[1]
-    say(f"phase 4: cornell 128^2 spot vs numpy oracle: {px_img} image px, "
-        f"{px_sh} shadow px differ of {n_px} (bound "
-        f"{int(ORACLE_PIXEL_BOUND * n_px)}); vs the port on the CPU: "
-        f"{px_cpu} px; shadowed px {int(sh.sum())}")
+    say(f"phase 4: cornell 128^2 spot, card vs the port on the CPU: "
+        f"{px_img} image px, {px_sh} shadow px differ of {n_px} (bound "
+        f"{int(CPU_PIXEL_BOUND * n_px)}); shadowed px {int(sh.sum())}")
     if img.shape != (128, 128, 3) or not torch.isfinite(out["color"]).all():
         fail("phase 4: malformed frame")
-    if max(px_img, px_sh) > ORACLE_PIXEL_BOUND * n_px or sh.sum() < 100:
-        fail("phase 4: the port disagrees with the numpy oracle")
+    if max(px_img, px_sh) > CPU_PIXEL_BOUND * n_px or sh.sum() < 100:
+        fail("phase 4: the card's frame disagrees with the CPU's")
 
     # Phase 5: the main path, flagship frames.
     for k in (k1.primary_sweep, k2.heavy_primary_sweep, k3.shadow_sweep):
@@ -541,12 +747,19 @@ def main(argv=None):
     probes = probe_phase()
 
     def entry(name, sites_, source, replaces):
+        rs = [results[s] for s in sites_]
+        b_ms = sum(r["bound_ms"] for r in rs)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "step_launches": step_launches[name],
-                "max_abs_err": max(results[s][2] for s in sites_),
-                "ms": sum(results[s][0] for s in sites_),
-                "plain_ms": sum(results[s][1] for s in sites_)}
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": sum(r["ms"] for r in rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": b_ms,
+                "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
+                "needed_tests": sum(r["needed_tests"] for r in rs),
+                "library_ms": None, "library_none": NO_LIBRARY[name],
+                "sites": {s: results[s] for s in sites_}}
 
     kernels = [
         entry("primary_sweep", ["primary_sweep"],

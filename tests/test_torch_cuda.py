@@ -1,8 +1,9 @@
 """ugrt_torch's CUDA kernels vs their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU (and nvcc, for the first build): every test here is
-marked ``cuda`` and skips without a card.  The file imports no JAX, so
-on a machine without it run it without the JAX test harness:
+marked ``cuda`` and skips without a card.  The file imports no JAX and
+nothing of ugrt, so on a machine without them run it without the JAX
+test harness:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -21,20 +22,20 @@ import numpy as np
 import pytest
 import torch
 
-from ugrt.config import RenderConfig
-from ugrt.core import camera as cam
-from ugrt.scene import procedural
+from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.host_camera import CameraSpec
+from ugrt_torch.scene import procedural
 
 pytestmark = pytest.mark.cuda
 
 SMALL = dataclasses.replace(RenderConfig(), screen_width=128,
                             screen_height=128, grid_x=16, grid_y=16)
-CAMERA = cam.CameraSpec(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
+CAMERA = CameraSpec(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
+                    up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
+INSIDE_BOX = CameraSpec(eye=(0.05, 0.03, 0.4), look_at=(0.1, 0.04, -1.0),
                         up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
-INSIDE_BOX = cam.CameraSpec(eye=(0.05, 0.03, 0.4), look_at=(0.1, 0.04, -1.0),
-                            up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
-LIGHT = cam.CameraSpec(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
-                       up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+LIGHT = CameraSpec(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
+                   up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
 
 
 @pytest.fixture
@@ -129,6 +130,26 @@ def test_primary_sweep_edges(card):
     assert (got[0][1] < 3e38).any()
 
 
+@pytest.mark.parametrize("all_occluded", [False, True])
+def test_shadow_sweep_skewed_on_card(card, all_occluded):
+    """K3 on the skewed case (one ray block spanning 300 windows beside
+    empty ranges and a range past the end) and on its all-occluded twin
+    (every item can stop early), at every chunk size: exactly equal to
+    the plain version, twice in a row (bitwise repeatable)."""
+    from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.micro.k3_chunks import skewed_case
+
+    args = skewed_case(card, 0, all_occluded)
+    want = k3.shadow_sweep_plain(*args, cfg=SMALL)
+    assert int(want.sum()) > 1000
+    for chunk in (1, 2, 4, 8):
+        before = k3.shadow_sweep.launches
+        got = [k3.shadow_sweep(*args, cfg=SMALL, chunk=chunk)
+               for _ in range(2)]
+        assert k3.shadow_sweep.launches == before + 2
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
 def test_frame_on_card_equals_cpu(card):
     """The whole small frame (grid, sweeps, shading) on the card equals
     the port's CPU frame bit for bit."""
@@ -163,8 +184,8 @@ def test_render_and_grad_card_equals_cpu(card):
         scene.vertices @ (rx @ ry).T))
     cfg = dataclasses.replace(RenderConfig(), screen_width=64,
                               screen_height=64, grid_x=8, grid_y=8)
-    light = cam.CameraSpec(eye=(0.1, 0.85, 0.4), look_at=(0.0, -1.0, 0.3),
-                           up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+    light = CameraSpec(eye=(0.1, 0.85, 0.4), look_at=(0.0, -1.0, 0.3),
+                       up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
     target = np.random.default_rng(0).uniform(0, 0.3, (64, 64, 3)).astype(
         np.float32)
     outs = []

@@ -80,18 +80,20 @@ class Case:
                       light_camcoords=_t(lcc), light_position=_t(lp))
         self.kw = dict(cfg=cfg, capacity=self.cap, num_lights=num_lights,
                        use_spot=use_spot)
+        self.cfg_t = bridge.render_config(cfg)
+        self.kw_t = dict(self.kw, cfg=self.cfg_t)
 
     def color_t(self, vertices=None, materials=None, capacity=None):
         a = dict(self.t)
         a["vertices"] = a["vertices"] if vertices is None else vertices
         a["materials"] = a["materials"] if materials is None else materials
-        kw = dict(self.kw, capacity=capacity or self.cap)
+        kw = dict(self.kw_t, capacity=capacity or self.cap)
         return rg_t.render_color(**a, **kw)
 
     def step_t(self, materials=None, capacity=None):
         a = dict(self.t)
         a["materials"] = a["materials"] if materials is None else materials
-        kw = dict(self.kw, capacity=capacity or self.cap)
+        kw = dict(self.kw_t, capacity=capacity or self.cap)
         return rg_t.render_and_grad(**a, target=_t(self.target), **kw)
 
     def step_j(self):
@@ -152,7 +154,7 @@ def test_refine_primary_matches_ugrt(tiny_cfg):
     v = case.t["vertices"].clone().requires_grad_(True)
     raw_t = {k: _t(raw[k]) for k in ("face_id", "ray_dir")}
     r_t = refine_t.refine_primary(
-        v, case.t["faces"], case.t["camcoords"], raw_t, case.cfg,
+        v, case.t["faces"], case.t["camcoords"], raw_t, case.cfg_t,
         face_aux=sh_t.face_shade_meta(case.t["mat_index"], 3))
     sum(torch.sum(r_t[k] * _t(w[k])) for k in w).backward()
     hit = np.asarray(raw["face_id"]) >= 0
@@ -292,9 +294,9 @@ def test_cornell_vertex_gradient_matches_fd(tiny_cfg):
     from ugrt_torch.trace import primary as tprimary
     grid = gbuild.build_perspective_grid(
         case.t["vertices"], case.t["faces"], case.t["camcoords"],
-        cfg=case.cfg, capacity=case.cap)
+        cfg=case.cfg_t, capacity=case.cap)
     raw = tprimary.trace_primary(case.t["vertices"], case.t["faces"],
-                                 case.t["camcoords"], grid, case.cfg)
+                                 case.t["camcoords"], grid, case.cfg_t)
     mask = _t(_interior_mask(raw["face_id"].numpy())[..., None].astype(
         np.float32))
     v = case.t["vertices"].clone().requires_grad_(True)
@@ -328,7 +330,7 @@ def test_shadowed_pixel_gradient_matches_fd(tiny_cfg):
     out = render_frame(case.t["vertices"], case.t["faces"],
                        case.t["mat_index"], case.t["materials"],
                        case.t["camcoords"], case.t["light_camcoords"],
-                       case.t["light_position"], **case.kw)
+                       case.t["light_position"], **case.kw_t)
     shmask = out["shadowed"].numpy() == 1
     assert shmask.sum() > 0
     wm = _t(shmask[..., None].astype(np.float32))

@@ -48,10 +48,10 @@ def _both_perspective(scene, cc, cfg, cap, **kw):
     gj = gbuild.build_perspective_grid(
         jnp.asarray(scene.vertices), jnp.asarray(scene.faces),
         jnp.asarray(cc), cfg=cfg, capacity=cap, **kw)
-    sc = bridge.scene_to_torch(scene)
+    sc = bridge.scene_to_torch(scene, "cpu")
     gt = tbuild.build_perspective_grid(
-        sc["vertices"], sc["faces"], bridge.from_numpy(cc), cfg=cfg,
-        capacity=cap, **kw)
+        sc["vertices"], sc["faces"], bridge.from_numpy(cc, "cpu"),
+        cfg=bridge.render_config(cfg), capacity=cap, **kw)
     return gj, gt
 
 
@@ -108,15 +108,16 @@ def test_spherical_grid_equal(small_cfg, cornell, generic_camera,
     grid = gbuild.build_perspective_grid(v, f, jnp.asarray(cc), cfg=cfg,
                                          capacity=cap)
     prim = tprim.trace_primary(v, f, jnp.asarray(cc), grid, cfg)
-    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]))
+    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]), "cpu")
               for k in ("t", "ray_dir")}
-    eye_j, eye_t = jnp.asarray(cc[:3]), bridge.from_numpy(cc[:3])
-    lcc_j, lcc_t = jnp.asarray(lcc), bridge.from_numpy(lcc)
+    eye_j, eye_t = jnp.asarray(cc[:3]), bridge.from_numpy(cc[:3], "cpu")
+    lcc_j, lcc_t = jnp.asarray(lcc), bridge.from_numpy(lcc, "cpu")
 
     kw_j, kw_t = {}, {}
     if mode == "extent":
         xj, yj = tshadow.light_extents(prim, eye_j, lcc_j, cfg)
-        xt, yt = tshadow_t.light_extents(prim_t, eye_t, lcc_t, cfg)
+        xt, yt = tshadow_t.light_extents(prim_t, eye_t, lcc_t,
+                                         bridge.render_config(cfg))
         assert (float(xj), float(yj)) == (float(xt), float(yt))
         kw_j, kw_t = dict(x_max=xj, y_max=yj), dict(x_max=xt, y_max=yt)
     elif mode == "windowed":
@@ -124,16 +125,17 @@ def test_spherical_grid_equal(small_cfg, cornell, generic_camera,
         # is held to it in test_light_window_close.
         wj = tshadow.light_window(prim, eye_j, lcc_j, cfg)
         kw_j = dict(window=wj)
-        kw_t = dict(window=tuple(bridge.from_numpy(np.asarray(x))
+        kw_t = dict(window=tuple(bridge.from_numpy(np.asarray(x), "cpu")
                                  for x in wj))
     if heavy is not None:
         kw_j["heavy_threshold"] = kw_t["heavy_threshold"] = heavy
 
     gj = gbuild.build_spherical_grid(v, f, lcc_j, cfg=cfg, capacity=cap,
                                      **kw_j)
-    sc = bridge.scene_to_torch(cornell)
+    sc = bridge.scene_to_torch(cornell, "cpu")
     gt = tbuild.build_spherical_grid(sc["vertices"], sc["faces"], lcc_t,
-                                     cfg=cfg, capacity=cap, **kw_t)
+                                     cfg=bridge.render_config(cfg),
+                                     capacity=cap, **kw_t)
     if heavy is not None:
         assert int(gj.heavy_count) > 0
     assert_grids_equal(gj, gt)
@@ -151,18 +153,19 @@ def test_light_window_close(small_cfg, cornell, generic_camera,
         v, f, jnp.asarray(cc), cfg=cfg,
         capacity=cfg.pair_capacity(cornell.num_faces))
     prim = tprim.trace_primary(v, f, jnp.asarray(cc), grid, cfg)
-    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]))
+    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]), "cpu")
               for k in ("t", "ray_dir")}
     wj = tshadow.light_window(prim, jnp.asarray(cc[:3]), jnp.asarray(lcc),
                               cfg)
-    wt = tshadow_t.light_window(prim_t, bridge.from_numpy(cc[:3]),
-                                bridge.from_numpy(lcc), cfg)
+    cfg_t = bridge.render_config(cfg)
+    wt = tshadow_t.light_window(prim_t, bridge.from_numpy(cc[:3], "cpu"),
+                                bridge.from_numpy(lcc, "cpu"), cfg_t)
     a = np.asarray([float(x) for x in wj], np.float32)
     b = np.asarray([float(x) for x in wt], np.float32)
     assert (np.abs(a - b) <= 8 * np.spacing(np.abs(a))).all(), (a, b)
 
     ej = tshadow.light_extents(prim, jnp.asarray(cc[:3]), jnp.asarray(lcc),
                                cfg)
-    et = tshadow_t.light_extents(prim_t, bridge.from_numpy(cc[:3]),
-                                 bridge.from_numpy(lcc), cfg)
+    et = tshadow_t.light_extents(prim_t, bridge.from_numpy(cc[:3], "cpu"),
+                                 bridge.from_numpy(lcc, "cpu"), cfg_t)
     assert [float(x) for x in ej] == [float(x) for x in et]

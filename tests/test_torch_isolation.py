@@ -1,0 +1,164 @@
+"""ugrt_torch imports nothing of ugrt, and its copies of ugrt's host
+modules equal the originals.
+
+The guard test imports every module of the port, and every import
+statement of chip_smoke.py, in a fresh interpreter where ``ugrt`` cannot
+be imported.  The copy tests hold each copied object to ugrt's: configs
+field for field, the packed camera vector and the procedural scenes
+bitwise, the OBJ parser on a small file.  Tolerance: none.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ugrt import config as config_j
+from ugrt.core import camera as cam_j
+from ugrt.scene import model as model_j
+from ugrt.scene import obj_loader as obj_j
+from ugrt.scene import procedural as proc_j
+from ugrt_torch import bridge
+from ugrt_torch import config as config_t
+from ugrt_torch.core import host_camera as cam_t
+from ugrt_torch.scene import model as model_t
+from ugrt_torch.scene import obj_loader as obj_t
+from ugrt_torch.scene import procedural as proc_t
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# bench.py:170-179 (chip_smoke's flagship) and tests/conftest.py's
+# Cornell camera and light.
+CAMERAS = {
+    "bench": dict(eye=(3.0, 15.0, 5.0), look_at=(13.0, 13.0, 3.0),
+                  up=(0.0, 0.0, 1.0)),
+    "bench_light": dict(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
+                        up=(0.0, 1.0, 0.0)),
+    "cornell": dict(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
+                    up=(0.02, 1.0, 0.013)),
+    "cornell_light": dict(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
+                          up=(0.0, 0.0, 1.0)),
+}
+
+
+def _chip_smoke_imports():
+    """Every import statement of chip_smoke.py, as source lines."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    return sorted({ast.unparse(node) for node in ast.walk(tree)
+                   if isinstance(node, (ast.Import, ast.ImportFrom))
+                   and not (isinstance(node, ast.ImportFrom)
+                            and node.module == "__future__")})
+
+
+def test_port_imports_nothing_of_ugrt():
+    imports = _chip_smoke_imports()
+    assert any("ugrt_torch" in line for line in imports)
+    code = "\n".join([
+        "import importlib, pkgutil, sys",
+        "sys.modules['ugrt'] = None   # any import of ugrt now fails",
+        "import ugrt_torch",
+        "names = [m.name for m in pkgutil.walk_packages(",
+        "    ugrt_torch.__path__, 'ugrt_torch.')]",
+        "for name in names:",
+        "    importlib.import_module(name)",
+        *imports,
+        "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
+        "print(len(names))",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 30
+
+
+def _write_obj(path):
+    """A small OBJ with a material library, quads, relative indices,
+    normals and texture coordinates."""
+    (path.parent / "m.mtl").write_text(
+        "newmtl red\nKa 0.3 0.05 0.05\nKd 0.8 0.1 0.1\nNs 10\n"
+        "newmtl grey\nKa 0.2 0.2 0.2\nKd 0.5 0.5 0.5\nd 0.5\n")
+    path.write_text(
+        "mtllib m.mtl\n# a comment\n"
+        "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0.5 0.5 1.25\n"
+        "vn 0 0 1\nvt 0.5 0.5\n"
+        "usemtl red\nf 1/1/1 2/1/1 3/1/1 4/1/1\n"
+        "usemtl grey\nf -5//1 -4//1 -1//1\nf 3 4 5\n")
+
+
+@pytest.mark.parametrize("what", [
+    "RenderConfig", "QuirkConfig", "pair_capacity", "camcoords",
+    "cathedral", "cornell_box", "obj_parser", "load_scene", "bridge"])
+def test_copies_equal_ugrt(what, tmp_path):
+    if what == "RenderConfig":
+        a, b = config_j.RenderConfig(), config_t.RenderConfig()
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert ([f.name for f in dataclasses.fields(a)]
+                == [f.name for f in dataclasses.fields(b)])
+        for prop in ("image_size", "num_cells", "cell_sentinel"):
+            assert getattr(a, prop) == getattr(b, prop)
+    elif what == "QuirkConfig":
+        assert (dataclasses.asdict(config_j.QuirkConfig())
+                == dataclasses.asdict(config_t.QuirkConfig()))
+    elif what == "pair_capacity":
+        for kw in ({}, dict(pair_capacity_factor=3, tri_batch=64)):
+            a = dataclasses.replace(config_j.RenderConfig(), **kw)
+            b = dataclasses.replace(config_t.RenderConfig(), **kw)
+            for n in (0, 1, 100, 2047, 2048, 2049, 73824, 10**6):
+                assert a.pair_capacity(n) == b.pair_capacity(n)
+    elif what == "camcoords":
+        for spec in CAMERAS.values():
+            for aspect in (1.0, 16 / 9):
+                a = cam_j.camcoords_from_spec(cam_j.CameraSpec(**spec),
+                                              45.0, aspect)
+                b = cam_t.camcoords_from_spec(cam_t.CameraSpec(**spec),
+                                              45.0, aspect)
+                assert a.dtype == b.dtype == np.float32
+                np.testing.assert_array_equal(a.view(np.int32),
+                                              b.view(np.int32))
+    elif what in ("cathedral", "cornell_box"):
+        kw = (dict(num_faces_target=2000, seed=0) if what == "cathedral"
+              else dict(subdiv=2))
+        a, b = getattr(proc_j, what)(**kw), getattr(proc_t, what)(**kw)
+        for f in ("vertices", "faces", "mat_index", "materials"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+    elif what == "obj_parser":
+        _write_obj(tmp_path / "s.obj")
+        a = obj_j.parse_obj(str(tmp_path / "s.obj"))
+        b = obj_t.parse_obj(str(tmp_path / "s.obj"))
+        for f in ("vertices", "normals", "texcoords"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert [dataclasses.asdict(x) for x in a.faces] == [
+            dataclasses.asdict(x) for x in b.faces]
+        assert [dataclasses.asdict(x) for x in a.materials] == [
+            dataclasses.asdict(x) for x in b.materials]
+    elif what == "load_scene":
+        _write_obj(tmp_path / "s.obj")
+        model_j.write_material_file(str(tmp_path / "mat.txt"),
+                                    np.asarray([[0.1, 0.2, 0.3, 0.4, 0.5,
+                                                 0.6]], np.float32))
+        for mat in (None, str(tmp_path / "mat.txt")):
+            a = model_j.load_scene(str(tmp_path / "s.obj"), mat,
+                                   prefer_native=False)
+            b = model_t.load_scene(str(tmp_path / "s.obj"), mat)
+            for f in ("vertices", "faces", "mat_index", "materials"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    else:
+        cfg = dataclasses.replace(
+            config_j.RenderConfig(), screen_width=64, grid_x=8,
+            quirks=config_j.QuirkConfig(abs_t=False))
+        assert (dataclasses.asdict(bridge.render_config(cfg))
+                == dataclasses.asdict(cfg))
+        assert isinstance(bridge.render_config(cfg), config_t.RenderConfig)
+        spec = cam_j.CameraSpec(**CAMERAS["bench"], near=0.5)
+        assert bridge.camera_spec(spec) == cam_t.CameraSpec(
+            **CAMERAS["bench"], near=0.5)
+        sc = bridge.scene(proc_j.cornell_box())
+        assert isinstance(sc, model_t.Scene)
+        np.testing.assert_array_equal(sc.faces, proc_t.cornell_box().faces)

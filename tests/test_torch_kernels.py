@@ -50,8 +50,9 @@ def _np(t):
 
 def _primary_inputs(scene, spec, cfg, cap, **kw):
     """Port-side grid, K1 windows, [NB, 128, 8] rays and spans."""
-    sc = bridge.scene_to_torch(scene)
-    cc = bridge.from_numpy(_cc(spec, cfg))
+    sc = bridge.scene_to_torch(scene, "cpu")
+    cc = bridge.from_numpy(_cc(spec, cfg), "cpu")
+    cfg = bridge.render_config(cfg)
     grid = tbuild.build_perspective_grid(sc["vertices"], sc["faces"], cc,
                                          cfg=cfg, capacity=cap, **kw)
     tri = tw.pack_tri_windows(sc["vertices"], sc["faces"], grid, cc[:3])
@@ -87,7 +88,8 @@ def test_primary_sweep_plain_matches_pallas(small_cfg, cornell,
         cornell, generic_camera, cfg, cfg.pair_capacity(cornell.num_faces))
     nb, nw = rows.shape[0], tri.shape[0]
     w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
-    t_p, f_p = k1.primary_sweep_plain(tri, rows, w_lo, w_hi, cfg=cfg)
+    t_p, f_p = k1.primary_sweep_plain(tri, rows, w_lo, w_hi,
+                                      cfg=bridge.render_config(cfg))
 
     wi, wb, _, total = pt.make_windows(jnp.asarray(_np(lo)),
                                        jnp.asarray(_np(hi)), nb + nw, nw)
@@ -113,7 +115,7 @@ def test_heavy_primary_sweep_plain_matches_pallas(small_cfg, cornell,
                                grid.heavy_count, cc[:3], grid.heavy_ranges)
     table = tw.pack_heavy_windows(co)
     t_p, f_p = k2.heavy_primary_sweep_plain(grid.heavy_count, table, rows,
-                                            cfg=cfg)
+                                            cfg=bridge.render_config(cfg))
     t_j, f_j = pt.heavy_primary_sweep(
         jnp.asarray(_np(grid.heavy_count)), jnp.asarray(_np(table)),
         jnp.asarray(_np(rows)), cfg=cfg, interpret=True)
@@ -132,15 +134,17 @@ def _shadow_inputs(scene, camera, light, cfg, cap, heavy_threshold):
     g = gbuild.build_perspective_grid(v, f, jnp.asarray(cc), cfg=cfg,
                                       capacity=cap)
     prim = tprim.trace_primary(v, f, jnp.asarray(cc), g, cfg)
-    sc = bridge.scene_to_torch(scene)
-    lcc_t = bridge.from_numpy(lcc)
+    sc = bridge.scene_to_torch(scene, "cpu")
+    lcc_t = bridge.from_numpy(lcc, "cpu")
     lgrid = tbuild.build_spherical_grid(sc["vertices"], sc["faces"], lcc_t,
-                                        cfg=cfg, capacity=cap,
+                                        cfg=bridge.render_config(cfg),
+                                        capacity=cap,
                                         heavy_threshold=heavy_threshold)
     n = cfg.screen_width * cfg.screen_height
-    pts = (bridge.from_numpy(cc[:3])[None]
-           + bridge.from_numpy(np.asarray(prim["t"])).reshape(n, 1)
-           * bridge.from_numpy(np.asarray(prim["ray_dir"])).reshape(n, 3))
+    pts = (bridge.from_numpy(cc[:3], "cpu")[None]
+           + bridge.from_numpy(np.asarray(prim["t"]), "cpu").reshape(n, 1)
+           * bridge.from_numpy(np.asarray(prim["ray_dir"]),
+                               "cpu").reshape(n, 3))
     cells = binning.ray_light_cells(pts, lcc_t, cfg.grid_x, cfg.grid_y,
                                     cfg.angular_extent, cfg.angular_extent,
                                     cfg.quirks.y_forward_dot_typo)
@@ -195,7 +199,8 @@ def test_shadow_sweep_plain_matches_pallas(small_cfg, cornell,
         wi, wb, _, total = pt.make_windows(
             jnp.asarray(_np(lo)), jnp.asarray(_np(hi)),
             6 * nb + tri.shape[0] + 256, tri.shape[0], win=256)
-    sh_p = k3.shadow_sweep_plain(tri, rows, w_lo, w_hi, cfg=cfg, box=box)
+    sh_p = k3.shadow_sweep_plain(tri, rows, w_lo, w_hi,
+                                 cfg=bridge.render_config(cfg), box=box)
     guard = np.zeros((1, 128, 8), np.float32)
     guard[:, :, 4:7] = -1.0
     rays_j = jnp.asarray(np.concatenate([_np(rows), guard]).swapaxes(1, 2))
@@ -218,10 +223,11 @@ def test_window_packing_matches_ugrt(small_cfg, cornell, generic_camera,
     v, f = jnp.asarray(cornell.vertices), jnp.asarray(cornell.faces)
     gj = gbuild.build_spherical_grid(v, f, jnp.asarray(lcc), cfg=cfg,
                                      capacity=cap, heavy_threshold=4)
-    sc = bridge.scene_to_torch(cornell)
-    lt = bridge.from_numpy(lcc)
+    sc = bridge.scene_to_torch(cornell, "cpu")
+    lt = bridge.from_numpy(lcc, "cpu")
     gt = tbuild.build_spherical_grid(sc["vertices"], sc["faces"], lt,
-                                     cfg=cfg, capacity=cap, heavy_threshold=4)
+                                     cfg=bridge.render_config(cfg),
+                                     capacity=cap, heavy_threshold=4)
     L_j, L_t = jnp.asarray(lcc[:3]), lt[:3]
 
     def eq(a, b):
@@ -261,7 +267,7 @@ def test_cpu_tensors_take_the_plain_path(small_cfg, cornell,
                                          generic_camera):
     """On CPU tensors each wrapper returns its plain version's result and
     launches no kernel (the counters stay put); a wrong dtype raises."""
-    cfg = small_cfg
+    cfg = bridge.render_config(small_cfg)
     _, _, _, tri, rows, lo, hi = _primary_inputs(
         cornell, generic_camera, cfg, cfg.pair_capacity(cornell.num_faces))
     w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)

@@ -41,11 +41,12 @@ def _both(scene, spec, cfg, cap, **kw):
     gj = gbuild.build_perspective_grid(v, f, ccj, cfg=cfg, capacity=cap,
                                        **kw)
     rj = tprim.trace_primary(v, f, ccj, gj, cfg)
-    sc = bridge.scene_to_torch(scene)
-    cct = bridge.from_numpy(cc)
+    sc = bridge.scene_to_torch(scene, "cpu")
+    cct = bridge.from_numpy(cc, "cpu")
+    cfg_t = bridge.render_config(cfg)
     gt = tbuild.build_perspective_grid(sc["vertices"], sc["faces"], cct,
-                                       cfg=cfg, capacity=cap, **kw)
-    rt = tprim_t.trace_primary(sc["vertices"], sc["faces"], cct, gt, cfg)
+                                       cfg=cfg_t, capacity=cap, **kw)
+    rt = tprim_t.trace_primary(sc["vertices"], sc["faces"], cct, gt, cfg_t)
     return cc, gj, {k: np.asarray(v) for k, v in rj.items()}, \
         {k: bridge.to_numpy(v) for k, v in rt.items()}
 

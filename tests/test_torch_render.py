@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from ugrt.ref import oracle
+from ugrt_torch import bridge
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,8 +34,10 @@ def test_renderer_matches_oracle(small_cfg, cornell, generic_camera,
     lp = light_position or generic_light.eye
     ores = oracle.render_frame(cornell, generic_camera, [generic_light], lp,
                                small_cfg, use_spot=use_spot)
-    out = Renderer(cornell, small_cfg, device="cpu").render(
-        generic_camera, [generic_light], lp, use_spot=use_spot)
+    out = Renderer(bridge.scene(cornell), bridge.render_config(small_cfg),
+                   device="cpu").render(bridge.camera_spec(generic_camera),
+                                        [bridge.camera_spec(generic_light)],
+                                        lp, use_spot=use_spot)
     assert not bool(out["overflow"])
     assert out["shadowed"].sum() > 100
     np.testing.assert_array_equal(out["shadowed"].numpy(), ores["shadowed"])
@@ -51,10 +54,12 @@ def test_renderer_windowed_matches_ugrt(small_cfg, cornell, generic_camera,
     cfg = dataclasses.replace(small_cfg, light_grid_mode="windowed")
     lp = generic_light.eye
     rj = RendererJax(cornell, cfg)
-    rt = Renderer(cornell, cfg, device="cpu")
+    rt = Renderer(bridge.scene(cornell), bridge.render_config(cfg),
+                  device="cpu")
     for _ in range(2):
         oj = rj.render(generic_camera, [generic_light], lp)
-        ot = rt.render(generic_camera, [generic_light], lp)
+        ot = rt.render(bridge.camera_spec(generic_camera),
+                       [bridge.camera_spec(generic_light)], lp)
         np.testing.assert_array_equal(ot["shadowed"].numpy(),
                                       np.asarray(oj["shadowed"]))
         np.testing.assert_array_equal(ot["image"].numpy(),

@@ -16,6 +16,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ugrt.config import RenderConfig
 from ugrt.core import camera as cam
@@ -25,6 +26,8 @@ from ugrt.trace import primary as tprim
 from ugrt.trace import shadow as tshadow
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
+from ugrt_torch.kernels import shadow_sweep as k3
+from ugrt_torch.micro.k3_chunks import skewed_case
 from ugrt_torch.trace import shadow as tshadow_t
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -42,30 +45,33 @@ def _shadow_both(scene, camera, light, cfg, mode, heavy_threshold=None):
                                          capacity=cap)
     prim = tprim.trace_primary(v, f, jnp.asarray(cc), grid, cfg)
     eye_j, lcc_j = jnp.asarray(cc[:3]), jnp.asarray(lcc)
-    sc = bridge.scene_to_torch(scene)
-    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]))
+    sc = bridge.scene_to_torch(scene, "cpu")
+    cfg_t = bridge.render_config(cfg)
+    prim_t = {k: bridge.from_numpy(np.asarray(prim[k]), "cpu")
               for k in ("t", "ray_dir")}
-    eye_t, lcc_t = bridge.from_numpy(cc[:3]), bridge.from_numpy(lcc)
+    eye_t = bridge.from_numpy(cc[:3], "cpu")
+    lcc_t = bridge.from_numpy(lcc, "cpu")
 
     kw_j, kw_t = {}, {}
     if mode == "extent":
         x, y = tshadow.light_extents(prim, eye_j, lcc_j, cfg)
         kw_j = dict(x_max=x, y_max=y)
-        x, y = tshadow_t.light_extents(prim_t, eye_t, lcc_t, cfg)
+        x, y = tshadow_t.light_extents(prim_t, eye_t, lcc_t, cfg_t)
         kw_t = dict(x_max=x, y_max=y)
     elif mode == "windowed":
         kw_j = dict(window=tshadow.light_window(prim, eye_j, lcc_j, cfg))
-        kw_t = dict(window=tshadow_t.light_window(prim_t, eye_t, lcc_t, cfg))
+        kw_t = dict(window=tshadow_t.light_window(prim_t, eye_t, lcc_t,
+                                                  cfg_t))
     hk = {} if heavy_threshold is None else dict(
         heavy_threshold=heavy_threshold)
     lg_j = gbuild.build_spherical_grid(v, f, lcc_j, cfg=cfg, capacity=cap,
                                        **hk, **kw_j)
     lg_t = tbuild.build_spherical_grid(sc["vertices"], sc["faces"], lcc_t,
-                                       cfg=cfg, capacity=cap, **hk, **kw_t)
+                                       cfg=cfg_t, capacity=cap, **hk, **kw_t)
     sh_j, _ = tshadow.trace_shadow(v, f, lcc_j, lg_j, prim, eye_j, cfg,
                                    **kw_j)
     sh_t = tshadow_t.trace_shadow(sc["vertices"], sc["faces"], lcc_t, lg_t,
-                                  prim_t, eye_t, cfg, **kw_t)
+                                  prim_t, eye_t, cfg_t, **kw_t)
     return lg_j, prim, np.asarray(sh_j), bridge.to_numpy(sh_t)
 
 
@@ -114,3 +120,94 @@ def test_trace_shadow_matches_oracle(small_cfg, cornell, generic_camera,
         cornell, lcc, oracle.build_spherical_grid(cornell, lcc, cfg), o_prim,
         _cc(generic_camera, cfg)[:3], cfg)
     np.testing.assert_array_equal(sh_o, sh_t)
+
+
+def _window_pairs(w_lo, w_hi, nw):
+    """Sorted (block, window) pairs of the clamped inclusive ranges."""
+    return sorted((b, w) for b, (lo, hi) in enumerate(zip(w_lo.tolist(),
+                                                          w_hi.tolist()))
+                  for w in range(max(lo, 0), min(hi, nw - 1) + 1))
+
+
+def _assert_chunks_cover(w_lo, w_hi, nw, chunk):
+    """K3's work items cover each block's window range exactly once, in
+    pieces of 1 to ``chunk`` windows."""
+    item_end = k3.chunk_item_end(w_lo, w_hi, nw, chunk)
+    assert item_end.dtype == torch.int32
+    blk, w0, w1 = k3.chunk_windows(item_end, w_lo, w_hi, nw, chunk)
+    n = w1 - w0 + 1
+    assert bool(((n >= 1) & (n <= chunk)).all())
+    got = sorted((b, w) for b, a, z in zip(blk.tolist(), w0.tolist(),
+                                           w1.tolist())
+                 for w in range(a, z + 1))
+    assert got == _window_pairs(w_lo, w_hi, nw)
+
+
+# K3's work list at chunk sizes 1, 2 and 4 (in place of the sizes
+# trace_shadow picks per site), at its cell-key site
+# (reference light grid, also against the oracle) and at its footprint
+# box site (every face heavy): the chunked sweep's masks still equal
+# ugrt's, and the recorded ranges are covered once.
+@pytest.mark.parametrize("size", [1, 2, 4])
+@pytest.mark.parametrize("site", ["key", "box"])
+def test_trace_shadow_chunked(monkeypatch, small_cfg, cornell, generic_camera,
+                              generic_light, size, site):
+    calls = []
+
+    def sweep(tri, rays, w_lo, w_hi, *, cfg, box=False, chunk=None):
+        assert chunk == (tshadow_t.HCHUNK if box else tshadow_t.SCHUNK)
+        calls.append((box, tri.shape[0], w_lo, w_hi))
+        return k3.shadow_sweep(tri, rays, w_lo, w_hi, cfg=cfg, box=box,
+                               chunk=size)
+
+    monkeypatch.setattr(tshadow_t, "shadow_sweep", sweep)
+    mode, threshold = ("reference", None) if site == "key" else (
+        "windowed", 1)
+    lg, prim, sh_j, sh_t = _shadow_both(cornell, generic_camera,
+                                        generic_light, small_cfg, mode,
+                                        threshold)
+    assert sh_t.sum() > 100
+    np.testing.assert_array_equal(sh_j, sh_t)
+    # The site ran; at the key site some block walks two windows or more
+    # (split at chunk 1; the skewed test splits at every chunk size).
+    walked = [c for c in calls if c[0] == (site == "box")]
+    assert walked
+    if site == "key":
+        assert any(int((hi - lo).max()) >= 1 for _, _, lo, hi in walked)
+    for _, nw, w_lo, w_hi in calls:
+        _assert_chunks_cover(w_lo, w_hi, nw, size)
+    if site == "key":
+        lcc = _cc(generic_light, small_cfg)
+        sh_o = oracle.trace_shadow(
+            cornell, lcc, oracle.build_spherical_grid(cornell, lcc,
+                                                      small_cfg),
+            {k: np.asarray(v) for k, v in prim.items()},
+            _cc(generic_camera, small_cfg)[:3], small_cfg)
+        np.testing.assert_array_equal(sh_o, sh_t)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_shadow_sweep_skewed(chunk):
+    """One ray block whose sparse cells span all 300 windows, beside
+    blocks with empty ranges and one whose range runs past the end: the
+    chunked sweep equals every live block walking every window (the
+    cell-key test rejects the rows of other cells), and in the
+    all-occluded twin every ray with a cell is flagged."""
+    cfg = bridge.render_config(RenderConfig())
+    for occluded in (False, True):
+        tri, rays, w_lo, w_hi = skewed_case("cpu", 0, occluded)
+        nw = tri.shape[0]
+        assert int((w_hi - w_lo).max()) >= 200 and bool((w_hi < w_lo).any())
+        _assert_chunks_cover(w_lo, w_hi, nw, chunk)
+        got = k3.shadow_sweep(tri, rays, w_lo, w_hi, cfg=cfg, chunk=chunk)
+        live = rays[:, 0, 4] >= 0
+        every = k3.shadow_sweep_plain(
+            tri, rays, torch.zeros_like(w_lo),
+            torch.where(live, nw - 1, -1).to(torch.int32), cfg=cfg,
+            chunk=nw)
+        assert torch.equal(got, every)
+        real = rays[:, :, 4] >= 0
+        if occluded:
+            assert bool(got[real].all()) and not bool(got[~real].any())
+        else:
+            assert 0.2 < float(got[real].float().mean()) < 0.8

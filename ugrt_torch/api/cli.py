@@ -8,9 +8,9 @@
 
 The flags are ugrt's, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain PyTorch versions).  Frame 0 shades with Lambert, later
-frames with the spotlight; PPMs (and PNGs) go through ugrt.api.io, byte
-for byte in ugrt's format.  ``--reflect`` is not ported yet (ROADMAP
-Queue 1, reflection bounce) and is refused.
+frames with the spotlight; PPMs (and PNGs) are written by
+``ugrt_torch.api.io``, byte for byte in ugrt's format.  ``--reflect``
+is not ported yet (ROADMAP Queue 1, reflection bounce) and is refused.
 """
 
 from __future__ import annotations
@@ -63,11 +63,11 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    from ugrt.api import io
-    from ugrt.config import RenderConfig
-    from ugrt.core import camera as cam
-    from ugrt.scene import model as smodel
+    from ugrt_torch.api import io
     from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.config import RenderConfig
+    from ugrt_torch.core.host_camera import CameraSpec
+    from ugrt_torch.scene import model as smodel
 
     if args.reflect:
         raise SystemExit("error: --reflect is not in ugrt_torch yet (ROADMAP "
@@ -93,8 +93,8 @@ def main(argv=None):
           f"{scenes[0].num_faces}\tmaterials: {scenes[0].num_materials}")
 
     def spec(c):
-        return cam.CameraSpec(eye=tuple(c[0:3]), look_at=tuple(c[3:6]),
-                              up=tuple(c[6:9]), near=args.near, far=args.far)
+        return CameraSpec(eye=tuple(c[0:3]), look_at=tuple(c[3:6]),
+                          up=tuple(c[6:9]), near=args.near, far=args.far)
 
     camera_spec = spec(args.camera)
     lights = [] if args.no_shadows else [spec(args.light_camera)]

@@ -1,7 +1,7 @@
 """Frame renderer (torch mirror of ugrt/api/renderer.py:41-106, :229-279).
 
 Per frame, as the reference's display() (main.cu:59-302): camera
-matrices on the host (ugrt's numpy camera code) -> perspective grid ->
+matrices on the host (``core.host_camera``) -> perspective grid ->
 primary trace (K1, K2) -> per light: light window or extents, spherical
 grid, shadow trace (K3) -> shade with the last light's camera ->
 shadow darkening.  The tensors stay on the renderer's device; nothing
@@ -15,9 +15,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
-from ugrt.core import camera as cam
 from ugrt_torch import bridge
+from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.host_camera import CameraSpec
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
@@ -86,8 +86,8 @@ class Renderer:
             spec, cfg.fovy_deg, cfg.screen_width / cfg.screen_height,
             self.device)
 
-    def render(self, camera_spec: cam.CameraSpec,
-               light_specs: Sequence[cam.CameraSpec], light_position,
+    def render(self, camera_spec: CameraSpec,
+               light_specs: Sequence[CameraSpec], light_position,
                use_spot: bool | None = None):
         """Render one frame (see ``render_frame`` for the result)."""
         self.frame_cnt += 1

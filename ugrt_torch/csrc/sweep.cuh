@@ -3,10 +3,11 @@
 // (heavy_variants.cu).
 //
 // Layout contract with the Python wrappers (ugrt_torch/kernels/):
-//   rays       f32 [NB, 128, 8]  ray-major rows, one CUDA block per
-//                                128-ray block, one thread per ray
+//   rays       f32 [NB, 128, 8]  ray-major rows; a CUDA block of 128
+//                                threads takes a 128-ray block, one
+//                                thread per ray
 //   windows    f32 [NW, win, 16] triangle rows (ugrt_torch/trace/windows.py)
-//   w_lo/w_hi  i32 [NB]          each block's inclusive window range
+//   w_lo/w_hi  i32 [NB]          each ray block's inclusive window range
 //
 // Numerics: the library is compiled with -fmad=false -ftz=false
 // -prec-div=true -prec-sqrt=true (kernels/_build.py), so every product

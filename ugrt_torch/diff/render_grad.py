@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.ragged import segment_ids_from_starts
 from ugrt_torch.grid import binning
 

@@ -46,8 +46,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ugrt_primary_sweep": (_P, _I, _P, _I, _P, _P, _F, _I, _P, _P, _P),
     "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
-    "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _F, _F, _I, _I, _P,
-                          _P),
+    "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F, _I,
+                          _I, _P, _P, _P),
     # The probes S1-S3 (ugrt_torch/micro).
     "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
     "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),

@@ -20,16 +20,24 @@ _PAIRS_PER_CHUNK = 1 << 21   # (ray, triangle) pairs evaluated at once
 def sweep_items(tri_windows, w_lo, w_hi):
     """Yield (blk [C] int64, tri [C, win, 16]) chunks of the items
     {(b, w) : max(w_lo[b], 0) <= w <= min(w_hi[b], NW - 1)}."""
-    nw, win = tri_windows.shape[0], tri_windows.shape[1]
-    dev = tri_windows.device
+    nw = tri_windows.shape[0]
     lo = torch.clamp(w_lo.long(), min=0)
     n = torch.clamp(torch.clamp(w_hi.long(), max=nw - 1) - lo + 1, min=0)
-    blk = torch.repeat_interleave(torch.arange(n.shape[0], device=dev), n)
+    yield from window_runs(tri_windows, torch.arange(n.shape[0],
+                                                     device=n.device), lo, n)
+
+
+def window_runs(tri_windows, blk, w0, n):
+    """Yield (blk [C] int64, tri [C, win, 16]) chunks of the (ray block,
+    window) items of runs: run i is ray block blk[i] against the n[i]
+    windows from w0[i] on."""
+    pair_blk = torch.repeat_interleave(blk, n)
     start = torch.cumsum(n, 0) - n
-    widx = lo[blk] + torch.arange(blk.shape[0], device=dev) - start[blk]
-    chunk = max(1, _PAIRS_PER_CHUNK // (128 * win))
-    for s in range(0, blk.shape[0], chunk):
-        yield blk[s:s + chunk], tri_windows[widx[s:s + chunk]]
+    widx = (torch.repeat_interleave(w0 - start, n)
+            + torch.arange(pair_blk.shape[0], device=blk.device))
+    chunk = max(1, _PAIRS_PER_CHUNK // (128 * tri_windows.shape[1]))
+    for s in range(0, pair_blk.shape[0], chunk):
+        yield pair_blk[s:s + chunk], tri_windows[widx[s:s + chunk]]
 
 
 def _ray_index(blk):

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.kernels import _build
 from ugrt_torch.kernels.heavy_primary_sweep import (WIN, _check,
                                                     heavy_primary_sweep_plain)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.kernels import _build
 from ugrt_torch.kernels._plain import BIG, MAXI, lexmin_into, sweep_items
 

@@ -8,6 +8,12 @@ sweep over 128-wide ``pack_heavy_coeff_windows`` admitted by footprint
 box (:481).  Per ray: 1 if any admitted triangle occludes the segment
 from the light to the ray's surface point, else 0.
 
+The work is a list of items: each ray block's inclusive window range
+cut into chunks of at most ``chunk`` windows (``chunk_item_end``).  The
+kernel's persistent blocks take items from a device counter; the plain
+version walks the same items.  Items merge by OR, so the result does not
+depend on ``chunk``.
+
 ``shadow_sweep`` launches the kernel for CUDA tensors and runs
 ``shadow_sweep_plain`` only for CPU tensors.
 """
@@ -17,15 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import sqrt
 from ugrt_torch.kernels import _build
-from ugrt_torch.kernels._plain import or_into, sweep_items
+from ugrt_torch.kernels._plain import or_into, window_runs
 
 _T_MAX = np.float32(999999.9)   # intersectTri accept bound
 
 
-def _check(tri_windows, rays, w_lo, w_hi):
+def _check(tri_windows, rays, w_lo, w_hi, chunk):
     dev = rays.device
     nb = rays.shape[0] if rays.dim() == 3 else None
     _build.check_tensor(tri_windows, "tri_windows", torch.float32,
@@ -38,46 +44,82 @@ def _check(tri_windows, rays, w_lo, w_hi):
     if tri_windows.data_ptr() % 16:
         raise ValueError("tri_windows: the kernel reads it as float4; its "
                          "data must be 16-byte aligned")
+    if not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"chunk must be a positive int, got {chunk!r}")
+
+
+def chunk_item_end(w_lo, w_hi, nw: int, chunk: int):
+    """int32 [NB]: the inclusive prefix sum of each ray block's number of
+    work items, ceil(n / chunk) for its n = |[max(w_lo, 0), min(w_hi,
+    NW - 1)]| windows (none for an empty range).  Item i belongs to the
+    first block b with item_end[b] > i; its windows start at
+    max(w_lo[b], 0) + (i - item_end[b - 1]) * chunk.  The last entry is
+    the number of items.  Device ops only: no host sync."""
+    span = torch.clamp(w_hi, max=nw - 1) - torch.clamp(w_lo, min=0)
+    n_items = torch.div(torch.clamp(span + chunk, min=0), chunk,
+                        rounding_mode="floor")
+    return torch.cumsum(n_items, 0, dtype=torch.int32)
+
+
+def chunk_windows(item_end, w_lo, w_hi, nw: int, chunk: int):
+    """(blk, w0, w1) int64 [items]: each work item's ray block and
+    inclusive window range, decoded as the kernel decodes it."""
+    end = item_end.long()
+    item = torch.arange(int(end[-1]) if end.numel() else 0,
+                        device=end.device)
+    blk = torch.searchsorted(end, item, right=True)
+    first = torch.where(blk > 0, end[blk - 1], 0)
+    w0 = torch.clamp(w_lo.long()[blk], min=0) + (item - first) * chunk
+    w1 = torch.minimum(torch.clamp(w_hi.long()[blk], max=nw - 1),
+                       w0 + chunk - 1)
+    return blk, w0, w1
 
 
 def shadow_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
-                 box: bool = False):
+                 box: bool = False, chunk: int = 1):
     """Per-ray occlusion flags [NB, 128] int32.
 
     tri_windows: [NW, win, 16] coefficient rows; rays: [NB, 128, 8]
     (dir 0:3, light-to-point distance 3, cell key 4, gx 5, gy 6);
     w_lo/w_hi: [NB] int32 inclusive window ranges.  A row is a candidate
     when its key equals the ray's (box=False) or its footprint box holds
-    the ray's (gx, gy) (box=True).
+    the ray's (gx, gy) (box=True).  ``chunk``: windows per work item.
     """
-    _check(tri_windows, rays, w_lo, w_hi)
+    _check(tri_windows, rays, w_lo, w_hi, chunk)
     if rays.device.type == "cpu":
         return shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, cfg=cfg,
-                                  box=box)
+                                  box=box, chunk=chunk)
     if rays.device.type != "cuda":
         raise ValueError(f"shadow_sweep: unsupported device {rays.device}")
-    nb = rays.shape[0]
-    sh = torch.empty((nb, 128), dtype=torch.int32, device=rays.device)
-    _build.launch("ugrt_shadow_sweep", tri_windows, tri_windows.shape[0],
-                  tri_windows.shape[1], rays, nb, w_lo, w_hi,
+    nb, nw = rays.shape[0], tri_windows.shape[0]
+    item_end = chunk_item_end(w_lo, w_hi, nw, chunk)
+    # The flags and, after them, the kernel's item counter: one zero fill
+    # on the current stream, before the launch.
+    buf = torch.zeros((nb * 128 + 1,), dtype=torch.int32, device=rays.device)
+    _build.launch("ugrt_shadow_sweep", tri_windows, nw, tri_windows.shape[1],
+                  rays, nb, w_lo, w_hi, item_end, chunk,
                   np.float32(cfg.epsilon), np.float32(cfg.shadow_epsilon),
-                  int(cfg.quirks.shadow_accept_negative_t), int(box), sh)
+                  int(cfg.quirks.shadow_accept_negative_t), int(box),
+                  buf[nb * 128:], buf)
     shadow_sweep.launches += 1
-    return sh
+    return buf[:nb * 128].view(nb, 128)
 
 
 shadow_sweep.launches = 0
 
 
 def shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
-                       box: bool = False):
+                       box: bool = False, chunk: int = 1):
     """``shadow_sweep`` in PyTorch ops (any device), in the op order of
-    _shadow_body (pallas_tracer.py:446-472)."""
-    nb = rays.shape[0]
+    _shadow_body (pallas_tracer.py:446-472), over the work items that the
+    kernel takes for this ``chunk``."""
+    nb, nw = rays.shape[0], tri_windows.shape[0]
     flags = torch.zeros((nb * 128,), dtype=torch.int32, device=rays.device)
     eps = np.float32(cfg.epsilon)
     shadow_eps = np.float32(cfg.shadow_epsilon)
-    for blk, tri in sweep_items(tri_windows, w_lo, w_hi):
+    blk, w0, w1 = chunk_windows(chunk_item_end(w_lo, w_hi, nw, chunk), w_lo,
+                                w_hi, nw, chunk)
+    for blk, tri in window_runs(tri_windows, blk, w0, w1 - w0 + 1):
         ray = rays[blk]
 
         def rc(c):                                   # [C, 128 rays, 1]

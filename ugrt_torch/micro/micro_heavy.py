@@ -19,7 +19,7 @@ import sys
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.kernels import heavy_variants as hv
 from ugrt_torch.kernels.heavy_primary_sweep import (
     heavy_primary_sweep, heavy_primary_sweep_plain)

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.gather import gather_rows
 from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
 from ugrt_torch.grid import binning

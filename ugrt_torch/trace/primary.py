@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.vecmath import cross, normalize, transform_point
 from ugrt_torch.grid.build import DeviceGrid

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.gather import gather_rows
 from ugrt_torch.core.vecmath import absolute, cross, dot, normalize
 

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from ugrt.config import RenderConfig
+from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize, sqrt
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
@@ -33,6 +33,12 @@ from ugrt_torch.trace import windows as tw
 
 SWIN = 256    # cell-key windows: shadow spans cover several windows
 HWIN = 128    # heavy footprint-box windows
+# Windows per K3 work item at each site: the fastest of 1, 2, 4 and 8 on
+# the flagship windowed frame (PERF.md, K3: the cell-key site walks 1.2
+# windows per block on average, the box site 3.7 half-width ones for rays
+# 92% shadowed, where longer items stop early more often).
+SCHUNK = 1
+HCHUNK = 4
 
 # Windowed light-grid margin (fraction of the width per side) and width
 # floor, as ugrt.trace.shadow defines them.
@@ -165,7 +171,8 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         hi = torch.where(live, light_grid.cell_offset[k2 + slab]
                          + light_grid.cell_count[k2 + slab], 0)
         w_lo, w_hi = tw.window_span(lo, hi, SWIN)
-        shadow_blocks |= shadow_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg)
+        shadow_blocks |= shadow_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
+                                      chunk=SCHUNK)
 
     if light_grid.heavy_faces.shape[0] > 0:
         co = theavy.heavy_coeffs(vertices, faces, light_grid.heavy_faces,
@@ -176,7 +183,7 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         hlo, hhi = tw.heavy_block_window_range(
             first_cell, last_real, cfg.grid_y, tw.heavy_window_rects(co, HWIN))
         shadow_blocks |= shadow_sweep(tri_hw, rows, hlo, hhi, cfg=cfg,
-                                      box=True)
+                                      box=True, chunk=HCHUNK)
 
     # Unpermute: a scatter by the sort permutation (unique indices, so
     # deterministic).
