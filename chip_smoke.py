@@ -5,17 +5,24 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
 Phases (each prints a line; any failure raises and exits non-zero):
  1. CUDA must be available; prints the card's name and power limit.
- 2. Builds the CUDA kernels from ugrt_torch/csrc with nvcc.
+ 2. Builds the CUDA kernels from ugrt_torch/csrc with nvcc; prints each
+    kernel's registers and spills (-Xptxas -v).
  3. Renders one flagship frame per light-grid mode (1024^2, 128x128
     grid, the 75k-triangle procedural cathedral, spot; windowed, then
     reference), records the inputs each sweep kernel gets on that path,
     and holds every kernel against its plain PyTorch version on them:
-    K1/K2 bitwise, K3 exact; K3 also on a synthetic skewed case (one
-    ray block spanning hundreds of windows beside empty ranges) and on
-    its all-occluded twin.  Prints mismatches, CUDA-event ms of kernel
-    vs plain, the (ray, row) tests the inputs need against those the
-    kernel walks, and the bound: the larger of the needed flops at the
-    card's published f32 peak and the bytes at its memory rate.
+    K1/K2 bitwise, K3 exact; K1 also on its synthetic skewed case (one
+    ray block spanning 119 windows beside empty ranges and two-cell
+    blocks) at every chunk size, K3 on its skewed case (hundreds of
+    windows) and on its all-occluded twin.  Prints mismatches, CUDA-event
+    ms of kernel vs plain (and, by torch.profiler, of the CUDA kernel
+    alone beside the host time of a call), the (ray, row) tests the
+    inputs need against those the kernel walks (K1 and K2: counted by
+    the kernels' counting builds, with K1's work items, chunk and
+    longest range, and the tests K2's warps skip at the footprint vote
+    and the divisions they take), and the bound: the larger of the
+    needed flops at the card's published f32 peak and the bytes at its
+    memory rate.
  4. Renders the Cornell box at 128^2 on the card and on the CPU (where
     the sweeps run their plain versions); at most 0.1% of pixels of the
     u8 image and of the shadow mask may differ.  The CPU frame is held
@@ -50,6 +57,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -124,6 +132,20 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters):
+    """Mean host ms that fn() takes to return (it enqueues work on the
+    card and does not wait for it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return elapsed
+
+
 def bound(flops, nbytes, peak=PEAK_F32):
     """(ms, "operations" or "bytes"): the least time of the work at the
     card's published rates."""
@@ -183,26 +205,41 @@ def window_walk(w_lo, w_hi, nw):
 
 
 def sweep_work(site, args, kw, grid):
-    """(needed tests, walked tests, flops, bytes, what the ranges are) of
-    one captured sweep call."""
+    """(needed tests, walked tests, flops, bytes, what the work is) of one
+    captured sweep call.  K1 and K2 walk what their counting builds
+    report; K3 every row of every window of its ranges."""
     if site.startswith("primary_sweep"):
+        from ugrt_torch.kernels import _plain
+        from ugrt_torch.kernels import primary_sweep as k1
+
         tri, rays, w_lo, w_hi = args
         walk = window_walk(w_lo, w_hi, tri.shape[0])
         need = keyed_tests(tri, 9, rays, 3)
-        walked = int(walk.sum()) * tri.shape[1] * 128
+        chunk = kw.get("chunk", 1)
+        stats = k1.primary_sweep_stats(*args, **kw)
+        items = int(_plain.chunk_item_end(w_lo, w_hi, tri.shape[0],
+                                          chunk)[-1])
         out = rays.shape[0] * 128 * 8
-        return (need, walked, need * FLOPS_K1,
+        return (need, stats["tested"], need * FLOPS_K1,
                 nbytes(*args) + out,
-                f"{int(walk.sum())} block x window items, max "
-                f"{int(walk.max())} per block")
+                f"{int(walk.sum())} block x window pairs, longest range "
+                f"{int(walk.max())} windows; chunk {chunk}: {items} work "
+                f"items; warps skip {stats['skipped']} tests at the key "
+                f"vote")
     if site.startswith("heavy_primary_sweep"):
+        from ugrt_torch.kernels import heavy_primary_sweep as k2
+
         count, table, rays = args
         need = box_tests(table[10:14].T, rays, 4, grid)
         live = min(-(-int(count) // 128), table.shape[1] // 128)
-        walked = live * 128 * rays.shape[0] * 128
+        stats = k2.heavy_primary_sweep_stats(*args, **kw)
+        walked = live * 128 * rays.shape[0] * 128 - stats["skipped_footprint"]
         out = rays.shape[0] * 128 * 8
         return (need, walked, need * FLOPS_K2, nbytes(*args) + out,
-                f"every block x {live} live windows")
+                f"every block x {live} live windows; warps skip "
+                f"{stats['skipped_footprint']} tests at the footprint vote "
+                f"and {stats['skipped_before_division']} at the vote before "
+                f"the division; {stats['divided']} tests take the division")
     tri, rays, w_lo, w_hi = args
     walk = window_walk(w_lo, w_hi, tri.shape[0])
     if kw.get("box"):
@@ -214,6 +251,46 @@ def sweep_work(site, args, kw, grid):
             nbytes(*args) + rays.shape[0] * 128 * 4,
             f"{int(walk.sum())} block x window items, max "
             f"{int(walk.max())} per block")
+
+
+def kernel_name(mangled):
+    """``name<true|false>`` of a mangled kernel name, or the name as given
+    where it does not parse (e.g. ``_ZN41_GLOBAL__N__..._cu_aececa1420
+    primary_sweep_kernelILb0EEEv...`` -> ``primary_sweep_kernel<false>``)."""
+    m = re.match(r"_ZN?", mangled)
+    pos, name = (m.end() if m else 0), None
+    while m and (n := re.match(r"\d+", mangled[pos:])):
+        start = pos + n.end()
+        part = mangled[start:start + int(n.group())]
+        pos = start + len(part)
+        if not part.startswith("_GLOBAL__N"):
+            name = part
+    if not name:
+        return mangled
+    flag = re.match(r"ILb([01])E", mangled[pos:])
+    return name + (f"<{'true' if flag.group(1) == '1' else 'false'}>"
+                   if flag else "")
+
+
+def ptxas_kernels(text):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    nvcc's -Xptxas -v output."""
+    out, fn, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return out
 
 
 def capture_sweep_inputs(render, prefix=""):
@@ -261,8 +338,10 @@ def kernel_phase(scene, flagship, camera, light):
     import torch
 
     from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
-    from ugrt_torch.micro.k3_chunks import skewed_case
+    from ugrt_torch.micro.k3_chunks import (device_ms, skewed_case,
+                                            skewed_primary_case)
 
     sites = {}
     for mode, prefix in (("windowed", ""), ("reference", "reference: ")):
@@ -278,6 +357,10 @@ def kernel_phase(scene, flagship, camera, light):
     if not expect <= set(sites):
         fail(f"phase 3: sweep sites seen {sorted(sites)}, expected "
              f"{sorted(expect)}")
+    for chunk in (1, 2, 4, 8):
+        sites[f"primary_sweep skewed chunk={chunk}"] = (
+            k1.primary_sweep, k1.primary_sweep_plain,
+            skewed_primary_case("cuda", 0), dict(cfg=flagship, chunk=chunk))
     for name, occ in (("skewed", False), ("skewed all-occluded", True)):
         sites[f"shadow_sweep {name}"] = (
             k3.shadow_sweep, k3.shadow_sweep_plain,
@@ -290,10 +373,15 @@ def kernel_phase(scene, flagship, camera, light):
         torch.cuda.synchronize()
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        mism = sum(int((x != y).sum()) for x, y in zip(out_k, out_p))
+        mism = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                   if x.dtype == torch.float32 else int((x != y).sum())
+                   for x, y in zip(out_k, out_p))
         err = max(float((x.double() - y.double()).abs().max())
                   for x, y in zip(out_k, out_p))
         ms = cuda_ms(lambda: fn(*a, **kw), 20)
+        kernel_ms = sum(v for k, v in device_ms(lambda: fn(*a, **kw)).items()
+                        if "sweep" in k)
+        host = host_ms(lambda: fn(*a, **kw), 20)
         # The plain versions are timed on the sites the kernels line
         # reports (the windowed frame's) only: they walk every item.
         plain_ms = (cuda_ms(lambda: plain(*a, **kw), 2) if site in expect
@@ -305,14 +393,17 @@ def kernel_phase(scene, flagship, camera, light):
         shapes = ", ".join("x".join(str(d) for d in x.shape) or "scalar"
                            for x in a if isinstance(x, torch.Tensor))
         say(f"phase 3: {site} ({shapes}; {items}): {mism} mismatches, max "
-            f"|diff| {err}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+            f"|diff| {err}, kernel {ms:.4f} ms (its CUDA kernel alone "
+            f"{kernel_ms:.4f} ms, host {host:.4f} ms per call), plain "
+            f"{plain_ms:.3f} ms; "
             f"needed tests {need}, walked {walked} "
             f"({walked / max(need, 1):.2f}x); {flops} flops, {nbyte} bytes: "
             f"bound {b_ms:.5f} ms by {b_by} ({100 * b_ms / ms:.1f}% of the "
             f"kernel's time)")
         if mism:
             fail(f"phase 3: {site} disagrees with its plain version")
-        results[site] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+        results[site] = dict(ms=ms, kernel_ms=kernel_ms, host_ms=host,
+                             plain_ms=plain_ms, max_abs_err=err,
                              bound_ms=b_ms, bound_by=b_by, needed_tests=need,
                              walked_tests=walked)
     return results
@@ -654,13 +745,12 @@ def main(argv=None):
     path, nvcc_s = _build.build()
     _build.library()
     log = path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
     say(f"phase 2: built {path.name} in {nvcc_s:.1f} s (nvcc), "
         f"{time.perf_counter() - t0:.1f} s with load")
-    for ln in ptxas:
-        say(f"  ptxas: {ln}")
+    for name, regs, stores, loads in ptxas_kernels(
+            log.read_text() if log.exists() else ""):
+        say(f"  ptxas: {name}: {regs} registers, {stores} bytes spill "
+            f"stores, {loads} bytes spill loads")
 
     camera = CameraSpec(**CAMERA)
     light = CameraSpec(**LIGHT)
@@ -754,6 +844,8 @@ def main(argv=None):
                 "step_launches": step_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
+                "kernel_ms": sum(r["kernel_ms"] for r in rs),
+                "host_ms": sum(r["host_ms"] for r in rs),
                 "plain_ms": sum(r["plain_ms"] for r in rs),
                 "bound_ms": b_ms,
                 "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],

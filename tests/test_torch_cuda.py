@@ -109,7 +109,8 @@ def test_kernels_match_plain(card, camera, heavy_threshold, mode):
 
 
 def test_primary_sweep_edges(card):
-    """Empty ranges, ranges past the last window and a single block."""
+    """Empty ranges, ranges past the last window and a single block, at
+    every chunk size."""
     from ugrt_torch.kernels import primary_sweep as k1
 
     g = torch.Generator().manual_seed(0)
@@ -122,12 +123,101 @@ def test_primary_sweep_edges(card):
     w_hi = torch.tensor([1, 7], dtype=torch.int32)
     cfg = SMALL
     a = [x.to(card) for x in (tri, rays, w_lo, w_hi)]
-    got = k1.primary_sweep(*a, cfg=cfg)
     want = k1.primary_sweep_plain(*a, cfg=cfg)
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)
-    assert (got[0][0] == 3e38).all() and (got[1][0] == 2**31 - 1).all()
-    assert (got[0][1] < 3e38).any()
+    for chunk in (1, 2, 4, 8):
+        got = k1.primary_sweep(*a, cfg=cfg, chunk=chunk)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), chunk
+        assert (got[0][0] == 3e38).all() and (got[1][0] == 2**31 - 1).all()
+        assert (got[0][1] < 3e38).any()
+
+
+def test_primary_sweep_skewed_on_card(card):
+    """K1 on its skewed case (one ray block spanning 119 windows beside
+    empty ranges, two-cell blocks and a range past the end) at every
+    chunk size: bitwise equal to the plain version, twice in a row
+    (bitwise repeatable, whatever order the items merge in); its warp
+    counts add up to the tests of every item's windows."""
+    from ugrt_torch.kernels import _plain
+    from ugrt_torch.kernels import primary_sweep as k1
+    from ugrt_torch.micro.k3_chunks import skewed_primary_case
+
+    args = skewed_primary_case(card, 0)
+    want = k1.primary_sweep_plain(*args, cfg=SMALL)
+    assert int((want[0] < 3e38).sum()) > 1000
+    tri, _, w_lo, w_hi = args
+    for chunk in (1, 2, 4, 8):
+        before = k1.primary_sweep.launches
+        got = [k1.primary_sweep(*args, cfg=SMALL, chunk=chunk)
+               for _ in range(2)]
+        assert k1.primary_sweep.launches == before + 2
+        for g in got:
+            assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+        stats = k1.primary_sweep_stats(*args, cfg=SMALL, chunk=chunk)
+        assert k1.primary_sweep.launches == before + 2
+        _, w0, w1 = _plain.chunk_windows(_plain.chunk_item_end(
+            w_lo, w_hi, tri.shape[0], chunk), w_lo, w_hi, tri.shape[0],
+            chunk)
+        walked = int((w1 - w0 + 1).sum()) * 128 * 128
+        assert stats["tested"] + stats["skipped"] == walked
+        assert 0 < stats["tested"] < walked // 4
+
+
+def _heavy_case(device, nb=5, live=300, width=384, seed=0):
+    """(heavy_count, table [16, width], rays [nb, 128, 8]) for K2, from
+    numpy ``seed``: random coefficient rows; ray block b's two tiles sit
+    in cells (2b, 0) and (2b + 1, 0), except the first block's second
+    tile, whose rays take cells 0, 1, 2 in turn (warps of mixed cells),
+    and the last block's second tile, which lies in no footprint.  Faces 0-99 hold only tile 0 of block f % nb, faces 100-199
+    both tiles of one block, the rest the whole first row of cells; faces
+    200-249 have det 0 (never accepted).  Columns from ``live`` on are
+    dead.  nb is odd, so the last CUDA block holds one ray block."""
+    rng = np.random.default_rng(seed)
+    table = np.zeros((16, width), np.float32)
+    table[0:10] = rng.standard_normal((10, width))
+    f = np.arange(width)
+    b = f % nb
+    table[10] = np.where(f < 200, 2 * b, 0)
+    table[11] = np.where(f < 100, 2 * b, np.where(f < 200, 2 * b + 1,
+                                                  2 * nb - 2))
+    table[12], table[13] = 0, 0
+    table[0:3, 200:250] = 0.0
+    table[14] = f
+    table[10:15, live:] = np.asarray([1, 0, 1, 0, -1])[:, None]
+    table[0:10, live:] = 0.0
+    rays = np.zeros((nb, 128, 8), np.float32)
+    d = rng.standard_normal((nb, 128, 3))
+    rays[:, :, 0:3] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    rays[:, :64, 4] = 2 * np.arange(nb)[:, None]
+    rays[:, 64:, 4] = 2 * np.arange(nb)[:, None] + 1
+    rays[0, 64:, 4] = np.arange(64) % 3
+    rays[-1, 64:, 4] = 1000.0
+    count = torch.tensor(live, dtype=torch.int32, device=device)
+    return (count, torch.from_numpy(table).to(device),
+            torch.from_numpy(rays).to(device))
+
+
+def test_heavy_primary_sweep_synthetic_on_card(card):
+    """K2 where footprints hold one tile of a block and not the other,
+    where one tile's warps mix cells, one tile lies in no footprint (its
+    warps accept nothing) and some faces have det 0, with dead columns
+    and an odd number of ray blocks: bitwise equal to the plain version;
+    its warp counts add up to every (ray, live face) test."""
+    from ugrt_torch.kernels import heavy_primary_sweep as k2
+
+    args = _heavy_case(card)
+    want = k2.heavy_primary_sweep_plain(*args, cfg=SMALL)
+    before = k2.heavy_primary_sweep.launches
+    got = k2.heavy_primary_sweep(*args, cfg=SMALL)
+    assert k2.heavy_primary_sweep.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    t = want[0]
+    assert int((t < 3e38).sum()) > 200
+    assert not bool((t[-1, 64:] < 3e38).any())
+    stats = k2.heavy_primary_sweep_stats(*args, cfg=SMALL)
+    live_tests = 3 * 128 * t.numel()
+    assert sum(stats.values()) == live_tests
+    assert min(stats.values()) > 0
 
 
 @pytest.mark.parametrize("all_occluded", [False, True])

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from ugrt.config import RenderConfig
 from ugrt.core import camera as cam
 from ugrt.grid import build as gbuild
 from ugrt.trace import heavy as theavy
@@ -30,9 +31,12 @@ from ugrt_torch.grid import build as tbuild
 from ugrt_torch.kernels import heavy_primary_sweep as k2
 from ugrt_torch.kernels import primary_sweep as k1
 from ugrt_torch.kernels import shadow_sweep as k3
+from ugrt_torch.micro.k3_chunks import (PSKEW_ROWS_PER_CELL,
+                                       skewed_primary_case)
 from ugrt_torch.trace import heavy as theavy_t
 from ugrt_torch.trace import primary as tprim_t
 from ugrt_torch.trace import windows as tw
+from test_torch_shadow import _assert_chunks_cover
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INSIDE_BOX = cam.CameraSpec(eye=(0.05, 0.03, 0.4), look_at=(0.1, 0.04, -1.0),
@@ -99,6 +103,114 @@ def test_primary_sweep_plain_matches_pallas(small_cfg, cornell,
     assert (_np(t_p) < 3e38).sum() > 1000
     np.testing.assert_array_equal(np.asarray(f_j)[:nb], _np(f_p))
     np.testing.assert_array_equal(np.asarray(t_j)[:nb], _np(t_p))
+
+
+# K1's work items at chunk sizes 1, 2 and 4: the chunked plain version
+# equals the unchunked one (every range in one item) and ugrt's Pallas
+# kernel, and the items cover every block's range exactly once.  Some
+# block walks two windows (split at chunk 1; the skewed test below
+# splits at every chunk size).
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_primary_sweep_plain_chunked(small_cfg, cornell, generic_camera,
+                                     chunk):
+    cfg = small_cfg
+    _, _, _, tri, rows, lo, hi = _primary_inputs(
+        cornell, generic_camera, cfg, cfg.pair_capacity(cornell.num_faces))
+    nb, nw = rows.shape[0], tri.shape[0]
+    w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
+    assert int((w_hi - w_lo).max()) >= 1
+    _assert_chunks_cover(w_lo, w_hi, nw, chunk)
+    cfg_t = bridge.render_config(cfg)
+    t_c, f_c = k1.primary_sweep(tri, rows, w_lo, w_hi, cfg=cfg_t,
+                                chunk=chunk)
+    t_1, f_1 = k1.primary_sweep_plain(tri, rows, w_lo, w_hi, cfg=cfg_t,
+                                      chunk=nw)
+    assert torch.equal(t_c, t_1) and torch.equal(f_c, f_1)
+    wi, wb, _, total = pt.make_windows(jnp.asarray(_np(lo)),
+                                       jnp.asarray(_np(hi)), nb + nw, nw)
+    t_j, f_j = pt.primary_sweep(jnp.asarray(_np(tri)), _pallas_rays(rows),
+                                wi, wb, total, cfg=cfg, interpret=True,
+                                guard=nb)
+    np.testing.assert_array_equal(np.asarray(f_j)[:nb], _np(f_c))
+    np.testing.assert_array_equal(np.asarray(t_j)[:nb], _np(t_c))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_primary_sweep_skewed(chunk):
+    """K1's skewed case: one ray block whose 128 cells span 119 of the 120
+    windows, beside empty ranges, two-cell blocks and a range past the
+    last window.  The chunked sweep equals every live block walking every
+    window (the cell-key test rejects the rows of other cells); ties of
+    equal t between two faces go to the smaller face."""
+    cfg = bridge.render_config(RenderConfig())
+    tri, rays, w_lo, w_hi = skewed_primary_case("cpu", 0)
+    nw = tri.shape[0]
+    assert int((w_hi - w_lo).max()) >= 100 and bool((w_hi < w_lo).any())
+    assert int(w_hi.max()) >= nw
+    _assert_chunks_cover(w_lo, w_hi, nw, chunk)
+    t, f = k1.primary_sweep(tri, rays, w_lo, w_hi, cfg=cfg, chunk=chunk)
+    live = rays[:, 0, 3] >= 0
+    every = k1.primary_sweep_plain(
+        tri, rays, torch.zeros_like(w_lo),
+        torch.where(live, nw - 1, -1).to(torch.int32), cfg=cfg, chunk=nw)
+    assert torch.equal(t, every[0]) and torch.equal(f, every[1])
+    real = rays[:, :, 3] >= 0
+    assert 0.3 < float((t[real] < 3e38).float().mean())
+    assert not bool((t[~real] < 3e38).any())
+    # The tied twins (a cell's first and last rows) decided some rays.
+    rows = tri.reshape(-1, 16)
+    per = PSKEW_ROWS_PER_CELL
+    first, last = rows[0::per, 10].long(), rows[per - 1::per, 10].long()
+    cell = rays[:, :, 3].long().clamp(min=0)
+    twin = torch.minimum(first, last)[cell]
+    assert int((real & (f.long() == twin)).sum()) > 100
+
+
+def _key_case(case):
+    """(t f32, face int32) for the key-order test, from numpy."""
+    rng = np.random.default_rng(7)
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    if case == "denormals":
+        t = np.concatenate([rng.integers(1, 1 << 23, 200).astype(
+            np.uint32).view(np.float32), [tiny, np.nextafter(tiny, 0)],
+            rng.uniform(0, 1e-30, 50)])
+        face = rng.integers(0, 1000, t.size)
+    elif case == "ties":
+        t = np.repeat(rng.uniform(0.1, 10.0, 20), 10)
+        face = rng.integers(0, 2**31 - 1, t.size)
+    elif case == "max_face":
+        t = np.repeat(np.float32([1.0, 2.5e-40, 2.9e38]), 4)
+        face = np.tile([0, 1, 2**31 - 3, 2**31 - 2], 3)
+    else:   # "spread": positive finite floats from denormal to 3e38
+        t = (rng.integers(1, 0x7f61b1e6, 500).astype(np.uint32)
+             .view(np.float32))
+        face = rng.integers(0, 2**31 - 1, t.size)
+    return (torch.from_numpy(np.asarray(t, np.float32)),
+            torch.from_numpy(np.asarray(face, np.int32)))
+
+
+@pytest.mark.parametrize("case", ["denormals", "ties", "max_face", "spread",
+                                  "no_hit"])
+def test_primary_key(case):
+    """K1 merges items through the int64 key (bits(t) << 32) | face: over
+    positive finite t and face in [0, 2^31 - 2] the key orders as the lex
+    (t, face), and unpack_key inverts pack_key; the no-hit key unpacks to
+    (3e38, 2^31 - 1)."""
+    if case == "no_hit":
+        t, f = k1.unpack_key(torch.tensor([k1.NO_HIT_KEY]))
+        assert float(t[0]) == np.float32(3e38) and int(f[0]) == 2**31 - 1
+        assert t.dtype == torch.float32 and f.dtype == torch.int32
+        return
+    t, face = _key_case(case)
+    assert bool((t > 0).all()) and bool(torch.isfinite(t).all())
+    keys = k1.pack_key(t, face)
+    assert keys.dtype == torch.int64 and bool((keys < k1.NO_HIT_KEY).all())
+    back_t, back_f = k1.unpack_key(keys)
+    assert torch.equal(back_t, t) and torch.equal(back_f, face)
+    by_key = torch.argsort(keys, stable=True).tolist()
+    by_lex = sorted(range(t.numel()),
+                    key=lambda i: (float(t[i]), int(face[i]), i))
+    assert by_key == by_lex
 
 
 @pytest.mark.parametrize("heavy_capacity", [1024, 128])

@@ -24,6 +24,7 @@ from ugrt.ref import oracle
 from ugrt.trace import primary as tprim
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
+from ugrt_torch.kernels import primary_sweep as k1
 from ugrt_torch.trace import primary as tprim_t
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -96,4 +97,28 @@ def test_miss_sentinels(small_cfg, cornell):
     miss = rt["face_id"] == -2
     assert miss.any()
     assert (rt["t"][miss] == -1.0).all() and (rt["normal"][miss] == -1).all()
+    _assert_equal(rj, rt)
+
+
+# The whole primary trace with K1's work items at chunk sizes 1, 2 and 4
+# in place of PCHUNK (small_cfg; num_slabs=4, one sweep per slab): still
+# bitwise equal to ugrt.
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+@pytest.mark.parametrize("case", ["small", "num_slabs_4"])
+def test_trace_primary_chunked(monkeypatch, small_cfg, cornell,
+                               generic_camera, case, chunk):
+    calls, size = [], chunk
+
+    def sweep(tri, rays, w_lo, w_hi, *, cfg, chunk=None):
+        assert chunk == tprim_t.PCHUNK
+        calls.append((w_lo, w_hi))
+        return k1.primary_sweep(tri, rays, w_lo, w_hi, cfg=cfg, chunk=size)
+
+    monkeypatch.setattr(tprim_t, "primary_sweep", sweep)
+    cfg = small_cfg if case == "small" else NS4
+    _, _, rj, rt = _both(cornell, generic_camera, cfg,
+                         cfg.pair_capacity(cornell.num_faces))
+    assert len(calls) == cfg.num_slabs
+    assert any(int((hi - lo).max()) >= 1 for lo, hi in calls)
+    assert (rt["face_id"] >= 0).sum() > rt["face_id"].size // 2
     _assert_equal(rj, rt)

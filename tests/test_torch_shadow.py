@@ -26,6 +26,7 @@ from ugrt.trace import primary as tprim
 from ugrt.trace import shadow as tshadow
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
+from ugrt_torch.kernels import _plain as kplain
 from ugrt_torch.kernels import shadow_sweep as k3
 from ugrt_torch.micro.k3_chunks import skewed_case
 from ugrt_torch.trace import shadow as tshadow_t
@@ -132,9 +133,9 @@ def _window_pairs(w_lo, w_hi, nw):
 def _assert_chunks_cover(w_lo, w_hi, nw, chunk):
     """K3's work items cover each block's window range exactly once, in
     pieces of 1 to ``chunk`` windows."""
-    item_end = k3.chunk_item_end(w_lo, w_hi, nw, chunk)
+    item_end = kplain.chunk_item_end(w_lo, w_hi, nw, chunk)
     assert item_end.dtype == torch.int32
-    blk, w0, w1 = k3.chunk_windows(item_end, w_lo, w_hi, nw, chunk)
+    blk, w0, w1 = kplain.chunk_windows(item_end, w_lo, w_hi, nw, chunk)
     n = w1 - w0 + 1
     assert bool(((n >= 1) & (n <= chunk)).all())
     got = sorted((b, w) for b, a, z in zip(blk.tolist(), w0.tolist(),

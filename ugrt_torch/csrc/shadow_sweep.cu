@@ -31,14 +31,14 @@
 // window).  A persistent grid (as many blocks as fit on every SM) takes
 // items from a device counter with atomicAdd, so an SM that finishes
 // early takes the next item and no SM waits on a long range.  A thread
-// block finds an item's ray block by binary search over `item_end`, the
-// inclusive prefix sum of the chunk counts, whose last entry is the
-// number of items: nothing is sized on the host and no item can be
-// dropped (no schedule, no capacity, no overflow such as ugrt's
-// shadow.py:458-462, :485-486).  Items merge by OR without atomics: the
-// flags start zeroed and a thread stores 1 only where its ray is
-// occluded, so the result is independent of the order of the items and
-// bitwise repeatable.
+// block's first warp finds an item's ray block by a 32-way search over
+// `item_end` (decode_item, sweep.cuh), the inclusive prefix sum of the
+// chunk counts, whose last entry is the number of items: nothing is
+// sized on the host and no item can be dropped (no schedule, no
+// capacity, no overflow such as ugrt's shadow.py:458-462, :485-486).
+// Items merge by OR without atomics: the flags start zeroed and a thread
+// stores 1 only where its ray is occluded, so the result is independent
+// of the order of the items and bitwise repeatable.
 //
 // Work that cannot change an OR is skipped, so the result stays exactly
 // that of every test: an item starts from the flags that other items of
@@ -68,33 +68,15 @@ shadow_sweep_kernel(const float* __restrict__ tri, int nw, int win,
   extern __shared__ float4 s_win[];
   __shared__ int s_item[3];            // ray block (-1: no work left), w0, w1
   const float* s = reinterpret_cast<const float*>(s_win);
-  const int total = item_end[nb - 1];
-
   for (;;) {
-    if (threadIdx.x == 0) {
-      const int item = atomicAdd(counter, 1);
-      int b = -1;
-      if (item < total) {
-        // The first ray block whose inclusive item_end exceeds `item`.
-        int lo = 0, hi = nb - 1;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (item_end[mid] > item) {
-            hi = mid;
-          } else {
-            lo = mid + 1;
-          }
-        }
-        b = lo;
-        const int first = b > 0 ? item_end[b - 1] : 0;
-        const int w0 = max(w_lo[b], 0) + (item - first) * chunk;
-        s_item[1] = w0;
-        s_item[2] = min(min(w_hi[b], nw - 1), w0 + chunk - 1);
-      }
-      s_item[0] = b;
+    if (threadIdx.x < 32) {
+      int item = 0;
+      if (threadIdx.x == 0) item = atomicAdd(counter, 1);
+      decode_item(__shfl_sync(kFull, item, 0), item_end, nb, w_lo, w_hi, nw,
+                  chunk, s_item);
     }
     // Every thread reads s_item before the window loop's first barrier,
-    // so thread 0 cannot overwrite it for the next item too early.
+    // so warp 0 cannot overwrite it for the next item too early.
     __syncthreads();
     const int b = s_item[0];
     if (b < 0) break;
@@ -158,15 +140,10 @@ extern "C" int ugrt_shadow_sweep(const void* tri, int nw, int win,
                                  void* counter, void* sh_out, void* stream) {
   if (nb == 0) return 0;
   const size_t smem = static_cast<size_t>(win) * ugrt::kComp * sizeof(float);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, shadow_sweep_kernel, ugrt::kRays, smem);
+  int grid = 0;
+  const cudaError_t err =
+      ugrt::persistent_grid(shadow_sweep_kernel, ugrt::kRays, smem, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = sms * (per_sm > 0 ? per_sm : 1);
   shadow_sweep_kernel<<<grid, ugrt::kRays, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tri), nw, win,

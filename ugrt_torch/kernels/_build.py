@@ -44,8 +44,9 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point; the stream is always the last argument.
 SIGNATURES = {
-    "ugrt_primary_sweep": (_P, _I, _P, _I, _P, _P, _F, _I, _P, _P, _P),
-    "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
+    "ugrt_primary_sweep": (_P, _I, _P, _I, _P, _P, _P, _I, _F, _I, _P, _P,
+                           _P),
+    "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P),
     "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F, _I,
                           _I, _P, _P, _P),
     # The probes S1-S3 (ugrt_torch/micro).

@@ -5,7 +5,11 @@ block's inclusive window range.  The plain versions expand those items,
 evaluate them in chunks as [C, 128 rays, win triangles] tensors, and
 combine per ray with order-independent reductions — lex-min (t, face)
 for the primary sweeps, OR for the shadow sweep — so they equal the
-kernels, which walk the same items as a loop inside each CUDA block.
+kernels whatever order those take the items in.  K1 and K3 cut each
+block's range into work items of at most ``chunk`` windows
+(``chunk_item_end``), which their persistent CUDA blocks share out and
+decode as ``chunk_windows`` does (csrc/sweep.cuh, decode_item); K2 walks
+each block's range inside one CUDA block.
 """
 
 from __future__ import annotations
@@ -25,6 +29,43 @@ def sweep_items(tri_windows, w_lo, w_hi):
     n = torch.clamp(torch.clamp(w_hi.long(), max=nw - 1) - lo + 1, min=0)
     yield from window_runs(tri_windows, torch.arange(n.shape[0],
                                                      device=n.device), lo, n)
+
+
+def chunk_item_end(w_lo, w_hi, nw: int, chunk: int):
+    """int32 [NB]: the inclusive prefix sum of each ray block's number of
+    work items, ceil(n / chunk) for its n = |[max(w_lo, 0), min(w_hi,
+    NW - 1)]| windows (none for an empty range).  Item i belongs to the
+    first block b with item_end[b] > i; its windows start at
+    max(w_lo[b], 0) + (i - item_end[b - 1]) * chunk.  The last entry is
+    the number of items.  Device ops only: no host sync."""
+    span = torch.clamp(w_hi, max=nw - 1) - torch.clamp(w_lo, min=0)
+    n_items = torch.div(torch.clamp(span + chunk, min=0), chunk,
+                        rounding_mode="floor")
+    return torch.cumsum(n_items, 0, dtype=torch.int32)
+
+
+def chunk_windows(item_end, w_lo, w_hi, nw: int, chunk: int):
+    """(blk, w0, w1) int64 [items]: each work item's ray block and
+    inclusive window range, decoded as the kernel decodes it."""
+    end = item_end.long()
+    item = torch.arange(int(end[-1]) if end.numel() else 0,
+                        device=end.device)
+    blk = torch.searchsorted(end, item, right=True)
+    first = torch.where(blk > 0, end[blk - 1], 0)
+    w0 = torch.clamp(w_lo.long()[blk], min=0) + (item - first) * chunk
+    w1 = torch.minimum(torch.clamp(w_hi.long()[blk], max=nw - 1),
+                       w0 + chunk - 1)
+    return blk, w0, w1
+
+
+def chunk_runs(tri_windows, w_lo, w_hi, chunk: int):
+    """Yield (blk [C] int64, tri [C, win, 16]) chunks of the (ray block,
+    window) pairs of the work items that the kernels take for ``chunk``:
+    the same pairs as ``sweep_items``, reached through the item decode."""
+    nw = tri_windows.shape[0]
+    blk, w0, w1 = chunk_windows(chunk_item_end(w_lo, w_hi, nw, chunk), w_lo,
+                                w_hi, nw, chunk)
+    yield from window_runs(tri_windows, blk, w0, w1 - w0 + 1)
 
 
 def window_runs(tri_windows, blk, w0, n):

@@ -7,7 +7,9 @@ _heavy_primary_kernel_unrolled, :641-724, with _heavy_common :605-635),
 two bitwise-equal variants picked by live density; one kernel covers
 both here.  Every ray tests every live heavy face of the comp-major
 [16, NWH * 128] table from ``pack_heavy_windows``; the op order is
-ugrt.trace.heavy.heavy_min_t's.
+ugrt.trace.heavy.heavy_min_t's.  The kernel tests the footprint and the
+bounds that need no t first and lets a warp skip the rest of a face
+that none of its rays passes (the same values result).
 
 ``heavy_primary_sweep`` launches the kernel for CUDA tensors and runs
 ``heavy_primary_sweep_plain`` only for CPU tensors.
@@ -33,6 +35,19 @@ def _check(heavy_count, table, rays):
         raise ValueError(f"table: width {table.shape[1]} is not a multiple "
                          f"of {WIN}")
     _build.check_tensor(rays, "rays", torch.float32, (None, 128, 8), dev)
+    if rays.data_ptr() % 16:
+        raise ValueError("rays: the kernel reads it as float4; its data "
+                         "must be 16-byte aligned")
+
+
+def _launch(heavy_count, table, rays, cfg, stats):
+    nb = rays.shape[0]
+    t = torch.empty((nb, 128), dtype=torch.float32, device=rays.device)
+    face = torch.empty((nb, 128), dtype=torch.int32, device=rays.device)
+    _build.launch("ugrt_heavy_primary_sweep", table, table.shape[1] // WIN,
+                  heavy_count, rays, nb, np.float32(cfg.epsilon),
+                  int(cfg.quirks.abs_t), t, face, stats)
+    return t, face
 
 
 def heavy_primary_sweep(heavy_count, table, rays, *, cfg: RenderConfig):
@@ -49,17 +64,30 @@ def heavy_primary_sweep(heavy_count, table, rays, *, cfg: RenderConfig):
     if rays.device.type != "cuda":
         raise ValueError(
             f"heavy_primary_sweep: unsupported device {rays.device}")
-    nb = rays.shape[0]
-    t = torch.empty((nb, 128), dtype=torch.float32, device=rays.device)
-    face = torch.empty((nb, 128), dtype=torch.int32, device=rays.device)
-    _build.launch("ugrt_heavy_primary_sweep", table, table.shape[1] // WIN,
-                  heavy_count, rays, nb, np.float32(cfg.epsilon),
-                  int(cfg.quirks.abs_t), t, face)
+    out = _launch(heavy_count, table, rays, cfg, None)
     heavy_primary_sweep.launches += 1
-    return t, face
+    return out
 
 
 heavy_primary_sweep.launches = 0
+
+
+def heavy_primary_sweep_stats(heavy_count, table, rays, *,
+                              cfg: RenderConfig):
+    """The kernel's counts on these inputs (CUDA tensors only), in (ray,
+    face) tests: those whose warp skipped the face at the footprint vote,
+    at the vote before the division, and that took the division.  A
+    measurement aid: it launches a counting build of the kernel and is no
+    launch of the main path."""
+    _check(heavy_count, table, rays)
+    if rays.device.type != "cuda":
+        raise ValueError("heavy_primary_sweep_stats: the counts are the "
+                         "CUDA kernel's")
+    stats = torch.zeros((3,), dtype=torch.int64, device=rays.device)
+    _launch(heavy_count, table, rays, cfg, stats)
+    fp, pre, div = stats.tolist()
+    return dict(skipped_footprint=fp, skipped_before_division=pre,
+                divided=div)
 
 
 def heavy_primary_sweep_plain(heavy_count, table, rays, *,

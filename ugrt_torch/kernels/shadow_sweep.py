@@ -9,9 +9,9 @@ box (:481).  Per ray: 1 if any admitted triangle occludes the segment
 from the light to the ray's surface point, else 0.
 
 The work is a list of items: each ray block's inclusive window range
-cut into chunks of at most ``chunk`` windows (``chunk_item_end``).  The
-kernel's persistent blocks take items from a device counter; the plain
-version walks the same items.  Items merge by OR, so the result does not
+cut into chunks of at most ``chunk`` windows (``_plain.chunk_item_end``,
+shared with K1).  The kernel's persistent blocks take items from a
+device counter; the plain version walks the same items.  Items merge by OR, so the result does not
 depend on ``chunk``.
 
 ``shadow_sweep`` launches the kernel for CUDA tensors and runs
@@ -26,7 +26,7 @@ import torch
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import sqrt
 from ugrt_torch.kernels import _build
-from ugrt_torch.kernels._plain import or_into, window_runs
+from ugrt_torch.kernels._plain import chunk_item_end, chunk_runs, or_into
 
 _T_MAX = np.float32(999999.9)   # intersectTri accept bound
 
@@ -46,33 +46,6 @@ def _check(tri_windows, rays, w_lo, w_hi, chunk):
                          "data must be 16-byte aligned")
     if not isinstance(chunk, int) or chunk < 1:
         raise ValueError(f"chunk must be a positive int, got {chunk!r}")
-
-
-def chunk_item_end(w_lo, w_hi, nw: int, chunk: int):
-    """int32 [NB]: the inclusive prefix sum of each ray block's number of
-    work items, ceil(n / chunk) for its n = |[max(w_lo, 0), min(w_hi,
-    NW - 1)]| windows (none for an empty range).  Item i belongs to the
-    first block b with item_end[b] > i; its windows start at
-    max(w_lo[b], 0) + (i - item_end[b - 1]) * chunk.  The last entry is
-    the number of items.  Device ops only: no host sync."""
-    span = torch.clamp(w_hi, max=nw - 1) - torch.clamp(w_lo, min=0)
-    n_items = torch.div(torch.clamp(span + chunk, min=0), chunk,
-                        rounding_mode="floor")
-    return torch.cumsum(n_items, 0, dtype=torch.int32)
-
-
-def chunk_windows(item_end, w_lo, w_hi, nw: int, chunk: int):
-    """(blk, w0, w1) int64 [items]: each work item's ray block and
-    inclusive window range, decoded as the kernel decodes it."""
-    end = item_end.long()
-    item = torch.arange(int(end[-1]) if end.numel() else 0,
-                        device=end.device)
-    blk = torch.searchsorted(end, item, right=True)
-    first = torch.where(blk > 0, end[blk - 1], 0)
-    w0 = torch.clamp(w_lo.long()[blk], min=0) + (item - first) * chunk
-    w1 = torch.minimum(torch.clamp(w_hi.long()[blk], max=nw - 1),
-                       w0 + chunk - 1)
-    return blk, w0, w1
 
 
 def shadow_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
@@ -113,13 +86,11 @@ def shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
     """``shadow_sweep`` in PyTorch ops (any device), in the op order of
     _shadow_body (pallas_tracer.py:446-472), over the work items that the
     kernel takes for this ``chunk``."""
-    nb, nw = rays.shape[0], tri_windows.shape[0]
+    nb = rays.shape[0]
     flags = torch.zeros((nb * 128,), dtype=torch.int32, device=rays.device)
     eps = np.float32(cfg.epsilon)
     shadow_eps = np.float32(cfg.shadow_epsilon)
-    blk, w0, w1 = chunk_windows(chunk_item_end(w_lo, w_hi, nw, chunk), w_lo,
-                                w_hi, nw, chunk)
-    for blk, tri in window_runs(tri_windows, blk, w0, w1 - w0 + 1):
+    for blk, tri in chunk_runs(tri_windows, w_lo, w_hi, chunk):
         ray = rays[blk]
 
         def rc(c):                                   # [C, 128 rays, 1]

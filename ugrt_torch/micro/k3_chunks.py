@@ -1,28 +1,36 @@
-"""K3's work split on the card: the shadow sweep timed on the inputs of
-the flagship frames, per chunk size, against another tree's K3.
+"""The sweep kernels on the card: K1, K2 or K3 timed on the inputs of the
+flagship frames, per chunk size, against another tree's kernel.
 
-    python -m ugrt_torch.micro.k3_chunks [--parent DIR] [--chunks 1 2 4 8]
-        [--out results.json] [--inputs saved.pt] [--seed N]
+    python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3] [--parent DIR]
+        [--chunks 1 2 4 8] [--out results.json] [--inputs saved.pt]
+        [--seed N]
 
 Renders one flagship frame (1024², 128x128 grid, the 75k-triangle
 procedural cathedral, spot) per light-grid mode, windowed and
-reference, records the inputs of K3 at both of its sites (cell key and
-footprint box), adds two synthetic cases (``skewed_case``: one ray block
-whose cells span hundreds of windows next to blocks with empty ranges,
-and the same with every real ray occluded), and saves them.  Then it
-times ``shadow_sweep`` on those inputs in fresh processes, one per
-tree: with ``--parent DIR`` (an unpacked checkout of another commit) in
-the order parent, this tree, this tree, parent, so that the two kernels
-meet the card in turns.  This tree's kernel is timed at every chunk
-size; a kernel without the ``chunk`` argument once.  Every result is
-held against that tree's ``shadow_sweep_plain`` on the same inputs.
-Prints one line per site and process and writes them all to ``--out``.
+reference, and records the inputs of the chosen kernel: K1 (primary
+sweep) and K2 (heavy primary sweep) once per frame (the primary grid
+does not depend on the light-grid mode), K3 (shadow sweep) at both of
+its sites (cell key and footprint box).  It adds synthetic cases: for K1
+``skewed_primary_case`` (one ray block whose cells span 120 windows next
+to empty ranges and two-cell blocks), for K3 ``skewed_case`` (one ray
+block whose cells span hundreds of windows next to blocks with empty
+ranges, and the same with every real ray occluded).  Then it times the
+kernel on those inputs in fresh processes, one per tree: with
+``--parent DIR`` (an unpacked checkout of another commit) in the order
+parent, this tree, this tree, parent, so that the two kernels meet the
+card in turns.  A kernel with a ``chunk`` argument is timed at every
+chunk size, one without it once.  Every result is held against that
+tree's plain version on the same inputs (K1, K2 bitwise; K3 exactly).
+Prints one line per site and process, with the device time of each
+CUDA kernel of a call (torch.profiler) and this tree's warp counts for
+K1 and K2, and writes them all to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import inspect
 import json
 import os
@@ -35,13 +43,62 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# The synthetic cases: cells of the light grid, pair rows per cell, and
+# K3's synthetic cases: cells of the light grid, pair rows per cell, and
 # the ray blocks around the one whose cells span the whole pair array.
 SKEW_CELLS = 1600
 SKEW_ROWS_PER_CELL = 48        # 300 windows of 256 rows
 SKEW_NORMAL_BLOCKS = 24
 SKEW_EMPTY_BLOCKS = 16
 SKEW_WIN = 256
+# K1's synthetic case: 1280 cells of 12 pair rows, 120 windows of 128.
+PSKEW_CELLS = 1280
+PSKEW_ROWS_PER_CELL = 12
+PSKEW_WIN = 128
+
+# Each kernel: (its wrapper module, the wrapper, the trace module and
+# attribute the wrapper is called through on the frame path).
+KERNELS = {
+    "k1": ("primary_sweep", "primary_sweep", "primary"),
+    "k2": ("heavy_primary_sweep", "heavy_primary_sweep", "primary"),
+    "k3": ("shadow_sweep", "shadow_sweep", "shadow"),
+}
+
+
+def _blocks(rng, n_cells, normal_cells):
+    """The synthetic cases' ray blocks, as their sorted cells [128] or
+    None (empty): one block with 128 distinct cells spread over all
+    ``n_cells`` between two empty ones, normal blocks (``normal_cells``
+    of them), more empty blocks, then the rest of the normal blocks."""
+    normal = [normal_cells(c) for c in
+              rng.integers(0, n_cells - 3, SKEW_NORMAL_BLOCKS)]
+    blocks = [None, np.sort(rng.choice(n_cells, 128, replace=False)), None]
+    blocks += normal[:SKEW_NORMAL_BLOCKS // 2]
+    blocks += [None] * (SKEW_EMPTY_BLOCKS - 2)
+    blocks += normal[SKEW_NORMAL_BLOCKS // 2:]
+    return blocks
+
+
+def _ranges(blocks, rows_per_cell, win, nw):
+    """Each block's inclusive window range: its cells' pair span, empty
+    ranges of both kinds (w_lo past the end, w_lo 0) for empty blocks, and
+    the last block's range running past the last window."""
+    nb = len(blocks)
+    w_lo = np.zeros(nb, np.int32)
+    w_hi = np.full(nb, -1, np.int32)
+    for b, cells in enumerate(blocks):
+        if cells is None:
+            w_lo[b] = nw if b % 2 else 0
+            continue
+        lo = cells[0] * rows_per_cell
+        hi = (cells[-1] + 1) * rows_per_cell
+        w_lo[b], w_hi[b] = lo // win, (hi - 1) // win
+    w_hi[-1] = nw + 5                           # clamped to the last window
+    return w_lo, w_hi
+
+
+def _to(device, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
 
 
 def skewed_case(device, seed=0, all_occluded=False):
@@ -73,14 +130,8 @@ def skewed_case(device, seed=0, all_occluded=False):
     tri = tri.reshape(-1, SKEW_WIN, 16)
     nw = tri.shape[0]
 
-    blocks = []                                 # (cells [128] or None)
-    normal = [np.sort(rng.integers(c, c + 3, 128)) for c in
-              rng.integers(0, SKEW_CELLS - 3, SKEW_NORMAL_BLOCKS)]
-    blocks += [None, np.sort(rng.choice(SKEW_CELLS, 128, replace=False)),
-               None]
-    blocks += normal[:SKEW_NORMAL_BLOCKS // 2]
-    blocks += [None] * (SKEW_EMPTY_BLOCKS - 2)
-    blocks += normal[SKEW_NORMAL_BLOCKS // 2:]
+    blocks = _blocks(rng, SKEW_CELLS,
+                     lambda c: np.sort(rng.integers(c, c + 3, 128)))
     nb = len(blocks)
     rays = np.zeros((nb, 128, 8), np.float32)
     dirs = rng.standard_normal((nb, 128, 3))
@@ -88,59 +139,112 @@ def skewed_case(device, seed=0, all_occluded=False):
         dirs[:] = (0.0, 0.0, 1.0)
     rays[:, :, 0:3] = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
     rays[:, :, 3] = rng.uniform(1.0, 10.0, (nb, 128))
-    w_lo = np.zeros(nb, np.int32)
-    w_hi = np.full(nb, -1, np.int32)
+    for b, cells in enumerate(blocks):
+        rays[b, :, 4] = -1.0 if cells is None else cells
+    w_lo, w_hi = _ranges(blocks, SKEW_ROWS_PER_CELL, SKEW_WIN, nw)
+    return _to(device, tri, rays, w_lo, w_hi)
+
+
+def skewed_primary_case(device, seed=0):
+    """(tri [NW, 128, 16], rays [NB, 128, 8], w_lo, w_hi) for K1, from
+    numpy ``seed``.
+
+    Each of PSKEW_CELLS cells holds PSKEW_ROWS_PER_CELL direct-form rows
+    (tvec = -v0 for rays from the origin, e1, e2, cell key, face id),
+    sorted by cell as the perspective grid's pair array: triangles about
+    the cell's direction at distances 2-10, so that the cell's rays hit
+    some of them.  Face ids are a random permutation, and each cell's
+    last row repeats its first row's triangle, so equal t with different
+    faces occur, some across a window boundary (two work items).  The
+    ray blocks are those of ``skewed_case``: ray block 1 holds 128 rays
+    in 128 distinct cells spread over all cells (a range of all 120
+    windows, 32 cells per warp), between blocks with empty ranges; the
+    others are two-cell blocks as on the frame path (one cell per 64-ray
+    tile, so a warp's rays share one cell), and the last block's range
+    runs past the last window."""
+    rng = np.random.default_rng(seed)
+    n_rows = PSKEW_CELLS * PSKEW_ROWS_PER_CELL
+    cell_dir = rng.standard_normal((PSKEW_CELLS, 3)) * (0.4, 0.4, 0.2)
+    cell_dir[:, 2] += 1.0
+    cell_dir /= np.linalg.norm(cell_dir, axis=1, keepdims=True)
+    row_cell = np.repeat(np.arange(PSKEW_CELLS), PSKEW_ROWS_PER_CELL)
+    centre = cell_dir[row_cell] * rng.uniform(2.0, 10.0, (n_rows, 1))
+    e1 = rng.standard_normal((n_rows, 3))
+    e2 = rng.standard_normal((n_rows, 3))
+    tri = np.zeros((n_rows, 16), np.float32)
+    tri[:, 0:3] = (e1 + e2) / 3 - centre        # tvec = origin - v0
+    tri[:, 3:6] = e1
+    tri[:, 6:9] = e2
+    tri[:, 9] = row_cell
+    tri[:, 10] = rng.permutation(n_rows)
+    first = np.arange(PSKEW_CELLS) * PSKEW_ROWS_PER_CELL
+    tri[first + PSKEW_ROWS_PER_CELL - 1, 0:9] = tri[first, 0:9]
+    tri = tri.reshape(-1, PSKEW_WIN, 16)
+    nw = tri.shape[0]
+
+    blocks = _blocks(rng, PSKEW_CELLS,
+                     lambda c: np.repeat([c, c + 1], 64))
+    nb = len(blocks)
+    rays = np.zeros((nb, 128, 8), np.float32)
     for b, cells in enumerate(blocks):
         if cells is None:
-            rays[b, :, 4] = -1.0
-            w_lo[b] = nw if b % 2 else 0        # both kinds of empty range
+            rays[b, :, 0:3] = rng.standard_normal((128, 3))
+            rays[b, :, 3] = -1.0
             continue
-        rays[b, :, 4] = cells
-        lo = cells[0] * SKEW_ROWS_PER_CELL
-        hi = (cells[-1] + 1) * SKEW_ROWS_PER_CELL
-        w_lo[b], w_hi[b] = lo // SKEW_WIN, (hi - 1) // SKEW_WIN
-    w_hi[-1] = nw + 5                           # clamped to the last window
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (tri, rays, w_lo, w_hi))
+        rays[b, :, 0:3] = (cell_dir[cells]
+                           + rng.standard_normal((128, 3)) * 0.05)
+        rays[b, :, 3] = cells
+    rays[:, :, 0:3] /= np.linalg.norm(rays[:, :, 0:3], axis=-1,
+                                      keepdims=True)
+    w_lo, w_hi = _ranges(blocks, PSKEW_ROWS_PER_CELL, PSKEW_WIN, nw)
+    return _to(device, tri, rays, w_lo, w_hi)
 
 
-def capture(path, seed):
-    """Record K3's inputs on the flagship frames and save them with the
-    synthetic cases (on the CPU) to ``path``."""
+def capture(path, seed, kernel):
+    """Record ``kernel``'s inputs on the flagship frames and save them
+    with its synthetic cases (on the CPU) to ``path``."""
     from ugrt_torch.api.renderer import Renderer
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.scene import procedural
-    from ugrt_torch.trace import shadow as tshadow
 
     camera = CameraSpec(eye=(3.0, 15.0, 5.0), look_at=(13.0, 13.0, 3.0),
                         up=(0.0, 0.0, 1.0))
     light = CameraSpec(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
                        up=(0.0, 1.0, 0.0))
     scene = procedural.cathedral(num_faces_target=75000, seed=seed)
+    _, attr, trace = KERNELS[kernel]
+    tmod = importlib.import_module(f"ugrt_torch.trace.{trace}")
+    sweep = getattr(tmod, attr)
     sites = {}
-    sweep = tshadow.shadow_sweep
 
     for mode in ("windowed", "reference"):
-        def record(tri, rays, w_lo, w_hi, *, cfg, box=False, **kw):
-            name = f"{mode} {'box' if box else 'key'}"
-            sites.setdefault(name, dict(args=[x.cpu() for x in (
-                tri, rays, w_lo, w_hi)], box=box))
-            return sweep(tri, rays, w_lo, w_hi, cfg=cfg, box=box, **kw)
+        def record(*args, **kw):
+            box = bool(kw.get("box"))
+            name = (f"{mode} {'box' if box else 'key'}" if kernel == "k3"
+                    else mode)
+            sites.setdefault(name, dict(
+                args=[x.cpu() for x in args],
+                kw=dict(box=box) if kernel == "k3" else {}))
+            return sweep(*args, **kw)
 
         cfg = dataclasses.replace(RenderConfig(), light_grid_mode=mode)
-        tshadow.shadow_sweep = record
+        setattr(tmod, attr, record)
         try:
             Renderer(scene, cfg, device="cuda").render(
                 camera, [light], light.eye, use_spot=True)
         finally:
-            tshadow.shadow_sweep = sweep
-    for name, occ in (("skewed", False), ("skewed all-occluded", True)):
-        sites[name] = dict(args=list(skewed_case("cpu", seed, occ)),
-                           box=False)
-    for name, site in sites.items():
-        if not site["box"]:
-            print(f"{name}: {gap_items(*site['args'])}", flush=True)
+            setattr(tmod, attr, sweep)
+    if kernel == "k1":
+        sites["skewed"] = dict(args=list(skewed_primary_case("cpu", seed)),
+                               kw={})
+    if kernel == "k3":
+        for name, occ in (("skewed", False), ("skewed all-occluded", True)):
+            sites[name] = dict(args=list(skewed_case("cpu", seed, occ)),
+                               kw=dict(box=False))
+        for name, site in sites.items():
+            if not site["kw"]["box"]:
+                print(f"{name}: {gap_items(*site['args'])}", flush=True)
     torch.save(sites, path)
     return sites
 
@@ -149,7 +253,7 @@ def gap_items(tri, rays, w_lo, w_hi):
     """How many of a cell-key sweep's (ray block, window) items hold no
     row of any cell of the block's rays (a window's cells lie between its
     least and greatest key), and so could be skipped."""
-    from ugrt_torch.kernels.shadow_sweep import chunk_item_end, chunk_windows
+    from ugrt_torch.kernels._plain import chunk_item_end, chunk_windows
 
     nw = tri.shape[0]
     blk, w, _ = chunk_windows(chunk_item_end(w_lo, w_hi, nw, 1), w_lo, w_hi,
@@ -163,30 +267,56 @@ def gap_items(tri, rays, w_lo, w_hi):
     return f"{gap} of {blk.shape[0]} items hold no row of the block's cells"
 
 
-def time_sites(path, chunks, iters):
-    """Time this process's ``shadow_sweep`` (whichever tree is on the
+def device_ms(fn, iters=5):
+    """{CUDA kernel: mean device ms per fn() call} under torch.profiler:
+    the wrapper's kernel apart from its small torch ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+def time_sites(path, kernel, chunks, iters):
+    """Time this process's wrapper of ``kernel`` (whichever tree is on the
     path) on the saved inputs; one record per site."""
-    from ugrt_torch.kernels import shadow_sweep as k3
     from ugrt_torch.micro._common import card_line, compare, cuda_ms
 
+    module, attr, _ = KERNELS[kernel]
+    mod = importlib.import_module(f"ugrt_torch.kernels.{module}")
+    fn, plain = getattr(mod, attr), getattr(mod, f"{attr}_plain")
+    stats = getattr(mod, f"{attr}_stats", None)
     # Any object with these fields is a config to either tree's wrapper.
     cfg = types.SimpleNamespace(
         epsilon=1e-21, shadow_epsilon=1e-3,
-        quirks=types.SimpleNamespace(shadow_accept_negative_t=True))
-    has_chunk = "chunk" in inspect.signature(k3.shadow_sweep).parameters
+        quirks=types.SimpleNamespace(shadow_accept_negative_t=True,
+                                     abs_t=True))
+    has_chunk = "chunk" in inspect.signature(fn).parameters
     records = []
     for name, site in torch.load(path).items():
         args = [x.cuda() for x in site["args"]]
-        kw = dict(cfg=cfg, box=site["box"])
-        want = k3.shadow_sweep_plain(*args, **kw)
-        rec = dict(site=name, tree=os.getcwd(), card=card_line(),
-                   occluded=int(want.sum()), ms={}, mismatches={})
+        kw = dict(site["kw"], cfg=cfg)
+        want = plain(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        summary = (dict(occluded=int(want[0].sum())) if kernel == "k3"
+                   else dict(hits=int((want[0] < 3e38).sum())))
+        rec = dict(site=name, kernel=kernel, tree=os.getcwd(),
+                   card=card_line(), **summary, ms={}, mismatches={})
         for c in (chunks if has_chunk else [None]):
             ck = dict(kw, chunk=c) if c else kw
-            mism, _ = compare((k3.shadow_sweep(*args, **ck),), (want,))
+            got = fn(*args, **ck)
+            mism, _ = compare(got if isinstance(got, tuple) else (got,), want)
             rec["mismatches"][str(c)] = mism
-            rec["ms"][str(c)] = cuda_ms(lambda: k3.shadow_sweep(*args, **ck),
-                                        iters)
+            rec["ms"][str(c)] = cuda_ms(lambda: fn(*args, **ck), iters)
+            rec.setdefault("device_ms", {})[str(c)] = device_ms(
+                lambda: fn(*args, **ck))
+            if stats is not None:
+                rec.setdefault("stats", {})[str(c)] = stats(*args, **ck)
         records.append(rec)
         print(json.dumps(rec), flush=True)
     return records
@@ -194,12 +324,13 @@ def time_sites(path, chunks, iters):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k3")
     ap.add_argument("--parent", help="root of another tree to time beside "
                     "this one")
     ap.add_argument("--chunks", type=int, nargs="+", default=[1, 2, 4, 8])
-    ap.add_argument("--inputs", default="_archive/k3_inputs.pt",
-                    help="where the captured inputs are saved (in a "
-                    "directory .gitignore lists)")
+    ap.add_argument("--inputs", help="where the captured inputs are saved, "
+                    "in a directory .gitignore lists (default "
+                    "_archive/<kernel>_inputs.pt)")
     ap.add_argument("--out", help="also write the records to this file")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -208,15 +339,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k3_chunks needs an NVIDIA GPU")
-    inputs = str(Path(args.inputs).resolve())
+    inputs = str(Path(args.inputs or f"_archive/{args.kernel}_inputs.pt")
+                 .resolve())
     if args.time_only:
-        time_sites(inputs, args.chunks, args.iters)
+        time_sites(inputs, args.kernel, args.chunks, args.iters)
         return 0
 
     here = Path(__file__).resolve().parents[2]
     Path(inputs).parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    capture(inputs, args.seed)
+    capture(inputs, args.seed, args.kernel)
     print(f"captured in {time.perf_counter() - t0:.1f} s", flush=True)
     trees = [here] if args.parent is None else [
         Path(args.parent).resolve(), here, here, Path(args.parent).resolve()]
@@ -224,8 +356,8 @@ def main(argv=None):
     for tree in trees:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--time-only",
-             "--inputs", inputs, "--iters", str(args.iters), "--chunks",
-             *map(str, args.chunks)],
+             "--kernel", args.kernel, "--inputs", inputs, "--iters",
+             str(args.iters), "--chunks", *map(str, args.chunks)],
             cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
             capture_output=True, text=True, check=False)
         sys.stderr.write(proc.stderr[-4000:])

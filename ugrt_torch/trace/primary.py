@@ -2,9 +2,9 @@
 kernel branch of ugrt/trace/primary.py:201-443).
 
 Per slab, K1 (kernels/primary_sweep) sweeps each block of two 8x8 tiles
-(128 rays) over the windows of its two cells' pair span; K2
-(kernels/heavy_primary_sweep) sweeps every ray over the heavy list and
-its (t, face) merges by lex-min into slab 0.  Then the sequential slab
+(128 rays) over the windows of its two cells' pair span, in work items
+of at most PCHUNK windows; K2 (kernels/heavy_primary_sweep) sweeps every
+ray over the heavy list and its (t, face) merges by lex-min into slab 0.  Then the sequential slab
 scan with the isWithin reprojection (trace_kernel.cu:56-82) picks each
 ray's hit, and a per-face normal table gives the normals.  Misses report
 t = -1, face_id = -2, normal = -1 (trace_kernel.cu:254-263).
@@ -25,6 +25,10 @@ from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
+
+# Windows per K1 work item: the fastest of 1, 2, 4 and 8 on the flagship
+# frame (PERF.md, K1: 1.43 windows per ray block on average, 85 at most).
+PCHUNK = 1
 
 
 def tile_rays(dirs, cfg: RenderConfig):
@@ -87,7 +91,8 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
         lo = grid.cell_offset[k1]
         hi = grid.cell_offset[k2] + grid.cell_count[k2]
         w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
-        t_blk, f_blk = primary_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg)
+        t_blk, f_blk = primary_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
+                                     chunk=PCHUNK)
         t_slabs.append(t_blk.reshape(num_tiles, 64))
         f_slabs.append(f_blk.reshape(num_tiles, 64))
     t_cell = torch.stack(t_slabs, dim=1)                     # [T, NS, 64]

@@ -17,11 +17,11 @@ order, not a per-ray gather — and the heavy list into a small table:
 
 Each 128-ray block's work is an inclusive window range: ``window_span``
 for a pair span [lo, hi) of the sorted array, ``heavy_block_window_range``
-for the spatially packed heavy windows.  K1 walks a block's range in
-one CUDA block; K3 cuts the ranges into chunks that a persistent grid
-shares out (kernels/shadow_sweep.py).  ugrt's window schedules
-(``make_windows`` / ``make_heavy_windows``, their SMEM packing and work
-capacities) have no counterpart, so no shadow work can overflow.
+for the spatially packed heavy windows.  K1 and K3 cut the ranges into
+chunks that a persistent grid shares out (kernels/_plain.py,
+chunk_item_end).  ugrt's window schedules (``make_windows`` /
+``make_heavy_windows``, their SMEM packing and work capacities) have no
+counterpart, so no shadow work can overflow.
 """
 
 from __future__ import annotations
