@@ -19,8 +19,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
     alone beside the host time of a call), the (ray, row) tests the
     inputs need against those the kernel walks (K1 and K2: counted by
     the kernels' counting builds, with K1's work items, chunk and
-    longest range, and the tests K2's warps skip at the footprint vote
-    and the divisions they take), and the bound: the larger of the
+    longest range, and the tests K2's warps skip at the footprint, the
+    t-free and the could-win votes and the divisions they take), and the
+    bound: the larger of the
     needed flops at the card's published f32 peak and the bytes at its
     memory rate.
  4. Renders the Cornell box at 128^2 on the card and on the CPU (where
@@ -42,9 +43,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
     within 1e-5 * max|g| (sums in another order).
  7. The probes S1-S3 (ugrt_torch.micro) at their scripts' sizes: every
     variant held against its plain version (S1 fma, S2, S3 bitwise; S1
-    mma within its bound), then timed with their bounds; S1's three
-    products also as one torch.bmm (the library yardstick, "highest"
-    and TF32); every probe kernel must have launched.
+    mma within its bound), then timed with their bounds, S2's and S3's
+    half-rate floors (the f32 work at the rate -fmad=false leaves) and
+    S2's per-item copy bytes and copy floor, S3's and K2's warp counts;
+    S1's three products also as one torch.bmm (the library yardstick,
+    "highest" and TF32); every probe kernel must have launched.
 Then one JSON line with the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -237,9 +240,10 @@ def sweep_work(site, args, kw, grid):
         out = rays.shape[0] * 128 * 8
         return (need, walked, need * FLOPS_K2, nbytes(*args) + out,
                 f"every block x {live} live windows; warps skip "
-                f"{stats['skipped_footprint']} tests at the footprint vote "
-                f"and {stats['skipped_before_division']} at the vote before "
-                f"the division; {stats['divided']} tests take the division")
+                f"{stats['skipped_footprint']} tests at the footprint, "
+                f"{stats['skipped_before_division']} at the t-free vote and "
+                f"{stats['skipped_could_not_win']} at the could-win vote; "
+                f"{stats['divided']} tests take the division")
     tri, rays, w_lo, w_hi = args
     walk = window_walk(w_lo, w_hi, tri.shape[0])
     if kw.get("box"):
@@ -254,9 +258,11 @@ def sweep_work(site, args, kw, grid):
 
 
 def kernel_name(mangled):
-    """``name<true|false>`` of a mangled kernel name, or the name as given
-    where it does not parse (e.g. ``_ZN41_GLOBAL__N__..._cu_aececa1420
-    primary_sweep_kernelILb0EEEv...`` -> ``primary_sweep_kernel<false>``)."""
+    """``name<args>`` of a mangled kernel name with int and bool template
+    arguments, or the name as given where it does not parse (e.g.
+    ``_ZN41_GLOBAL__N__..._cu_aececa1420primary_sweep_kernelILb0EEEv...``
+    -> ``primary_sweep_kernel<false>``, ``...heavy_v3_kernelILi8ELi4ELb1E
+    EEv...`` -> ``heavy_v3_kernel<8, 4, true>``)."""
     m = re.match(r"_ZN?", mangled)
     pos, name = (m.end() if m else 0), None
     while m and (n := re.match(r"\d+", mangled[pos:])):
@@ -267,9 +273,13 @@ def kernel_name(mangled):
             name = part
     if not name:
         return mangled
-    flag = re.match(r"ILb([01])E", mangled[pos:])
-    return name + (f"<{'true' if flag.group(1) == '1' else 'false'}>"
-                   if flag else "")
+    targs = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if not targs:
+        return name
+    args = re.findall(r"L([ib])(\d+)E", targs.group(1))
+    return name + "<" + ", ".join(
+        v if t == "i" else ("true" if v == "1" else "false")
+        for t, v in args) + ">"
 
 
 def ptxas_kernels(text):
@@ -632,13 +642,21 @@ def probe_work(mod, workload):
                 + int(torch.unique(tiles).numel()) * 8 * 128 * 4
                 + nbytes(offs, tiles))
         n = offs.shape[0]
-        return {"tile_sweep": (n * 128 * 128 * FLOPS_S2,
-                               read + n * 128 * 8, PEAK_F32, None, {})}
+        flops = n * 128 * 128 * FLOPS_S2
+        # Each item copies its whole tile and ray tile, as the script's
+        # DMAs do: the copy floor counts those bytes, not the table's.
+        item = (128 * tri.shape[1] + 8 * 128) * 4
+        return {"tile_sweep": (flops, read + n * 128 * 8, PEAK_F32, None, {
+            "half_rate_floor_ms": flops / (PEAK_F32 / 2) * 1e3,
+            "copy_bytes_per_item": item,
+            "copy_floor_ms": n * item / HBM_BYTES_S * 1e3})}
     count, table, rays = workload
     need = box_tests(table[10:14].T[:int(count)], rays, 4, 128)
     nbyte = nbytes(table, rays) + rays.shape[0] * 128 * 8
-    return {f"heavy_sweep_v{i}": (need * FLOPS_K2, nbyte, PEAK_F32, None,
-                                  {"needed_tests": need}) for i in (1, 2, 3)}
+    return {f"heavy_sweep_v{i}": (need * FLOPS_K2, nbyte, PEAK_F32, None, {
+        "needed_tests": need,
+        "half_rate_floor_ms": need * FLOPS_K2 / (PEAK_F32 / 2) * 1e3})
+        for i in (1, 2, 3)}
 
 
 def probe_phase():
@@ -692,7 +710,10 @@ def probe_phase():
         say(f"phase 7: {name}: {flops} flops, {nbyte} bytes: bound "
             f"{b_ms:.5f} ms by {b_by}; {main['ms']:.4f} ms"
             + (f"; torch.bmm {lib_ms:.4f} ms (highest), "
-               f"{extra['library_tf32_ms']:.4f} ms (TF32)" if lib_ms else ""))
+               f"{extra['library_tf32_ms']:.4f} ms (TF32)" if lib_ms else "")
+            + "".join(f"; {k} {extra[k]!r}" for k in (
+                "half_rate_floor_ms", "copy_bytes_per_item", "copy_floor_ms")
+                      if k in extra))
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -702,7 +723,8 @@ def probe_phase():
             **({} if lib_ms else {"library_none": NO_LIBRARY[
                 "heavy_sweep" if name.startswith("heavy") else name]}),
             **extra, "variant": main_variant,
-            "variants": {r["variant"]: r["ms"] for r in recs}})
+            "variants": {r["variant"]: r["ms"] for r in recs},
+            **({"warp_counts": main["stats"]} if "stats" in main else {})})
     return entries
 
 

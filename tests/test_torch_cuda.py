@@ -302,18 +302,71 @@ def test_render_and_grad_card_equals_cpu(card):
                                    atol=1e-5 * np.abs(w).max(), err_msg=key)
 
 
-@pytest.mark.parametrize("name,sizes", [
+def _tied_heavy_case(device):
+    """``_heavy_case`` at four windows (v3 takes NWH 4) with tied t: for
+    every third column c of the first window, column c + 1 repeats
+    column c's face and column c + 128 repeats it too, with the ids of c
+    and c + 128 swapped, so the smallest id of three equal candidates
+    sits in the later window."""
+    count, table, rays = _heavy_case("cpu", width=512)
+    for c in range(0, 126, 3):
+        table[:14, c + 1] = table[:14, c]
+        table[:14, c + 128] = table[:14, c]
+        table[14, c], table[14, c + 128] = c + 128, c
+    return count.to(device), table.to(device), rays.to(device)
+
+
+def _tile_edges_case(device):
+    """(offs, tiles, tri, rays) for S2: 37 items, so neither 8 nor 64
+    items per block divide them; offsets and ray tiles before and past
+    the tables' ends (clamped); table rows r and r + 95 equal, so where a
+    column's first minimum lies in rows 0-32 its twin ties with it from
+    another row slice."""
+    rng = np.random.default_rng(5)
+    tri = np.tile(rng.standard_normal((95, 128), dtype=np.float32),
+                  (11, 1))[:1000]
+    offs = rng.integers(0, 1000 - 128, 37).astype(np.int32)
+    offs[:4] = (-3, 1000 - 128, 999, 5000)
+    tiles = rng.integers(0, 6, 37).astype(np.int32)
+    tiles[:3] = (-1, 6, 100)
+    rays = rng.standard_normal((6, 8, 128), dtype=np.float32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (offs, tiles, tri, rays))
+
+
+@pytest.mark.parametrize("name,case", [
     ("micro_mxu", dict(n_items=64)),
     ("pallas_micro", dict(cap8=4096, n_items=640, n_tiles=64)),
+    ("pallas_micro", _tile_edges_case),
     ("micro_heavy", dict(nb=65)),
-])
-def test_probes_match_plain_on_card(card, name, sizes):
-    """The probes S1-S3 at small sizes: every variant bitwise equal to its
-    plain version (S1 mma within its bound), as chip_smoke's phase 7
-    checks at the scripts' sizes."""
+    ("micro_heavy", lambda device: _heavy_case(device, width=512)),
+    ("micro_heavy", _tied_heavy_case),
+], ids=["mxu", "tiles", "tiles-edges", "heavy", "heavy-case", "heavy-tied"])
+def test_probes_match_plain_on_card(card, name, case):
+    """The probes S1-S3 at small sizes (each variant at every mb or
+    wchunk): every variant bitwise equal to its plain version (S1 mma
+    within its bound), as chip_smoke's phase 7 checks at the scripts'
+    sizes; also on S2's and S3's edge cases above and ``_heavy_case``.
+    S3's counting builds (K2's too) account for every (ray, live face)
+    test; on the synthetic cases each of their four counts is non-zero."""
     import importlib
 
     mod = importlib.import_module(f"ugrt_torch.micro.{name}")
-    records = mod.run(iters=1, workload=mod.make_workload(card, **sizes))
+    workload = (mod.make_workload(card, **case) if isinstance(case, dict)
+                else case(card))
+    records = mod.run(iters=1, workload=workload)
     assert records
     assert not [r for r in records if r["mismatches"]]
+    if name == "pallas_micro" and not isinstance(case, dict):
+        _, i = mod.tp.tile_sweep_plain(*workload, "full")
+        assert float((i < 33).float().mean()) > 0.2      # ties across slices
+    if name == "micro_heavy":
+        count, table, rays = workload
+        live = min(-(-int(count) // 128), table.shape[1] // 128)
+        for r in records:
+            assert sum(r["stats"].values()) == live * 128 * rays.shape[0] * 128
+            assert isinstance(case, dict) or min(r["stats"].values()) > 0
+        if case is _tied_heavy_case:
+            face = mod.heavy_primary_sweep_plain(*workload, cfg=SMALL)[1]
+            assert bool(torch.isin(face, torch.arange(0, 126, 3,
+                                                      device=card)).any())

@@ -252,6 +252,44 @@ def test_compute_block_matches_plain(tiles_ns):
     assert i_p[0, 3] != 9
 
 
+def _chain_np(row, ray):
+    """compute_block's chain for one row and ray column, in f32 numpy."""
+    f = np.float32
+    acc = row[0] * ray[0]
+    for i in range(1, 9):
+        acc = np.abs((acc + row[i] * ray[i % 8]) * f(1.0001) - f(0.5))
+    return acc
+
+
+@pytest.mark.parametrize("first,twin", [(5, 100), (31, 32)])
+def test_compute_block_first_row_wins_across_slices(tiles_ns, first, twin):
+    """Two equal rows far apart (or on either side of a 32-row slice
+    boundary of the CUDA kernel) that hold the minimum of some columns:
+    jnp.argmin and the plain version both take the first, the rule the
+    kernel's merge of its row slices keeps (smaller value, then smaller
+    row)."""
+    ns, _ = tiles_ns
+    rng = np.random.default_rng(8)
+    trib = rng.standard_normal((128, 128)).astype(np.float32)
+    rayb = rng.standard_normal((8, 128)).astype(np.float32)
+    # Row `first`'s last coefficient brings its chain near 0 in column n
+    # (one the kernel gives its second ray column): far below the others.
+    n, f = 70, np.float32
+    partial = trib[first, 0] * rayb[0, n]
+    for i in range(1, 8):
+        partial = np.abs((partial + trib[first, i] * rayb[i, n]) * f(1.0001)
+                         - f(0.5))
+    trib[first, 8] = (f(0.5) / f(1.0001) - partial) / rayb[0, n]
+    trib[twin] = trib[first]
+    t_j, i_j = ns["compute_block"](jnp.asarray(trib), jnp.asarray(rayb))
+    t_p, i_p = tp.compute_block(torch.from_numpy(trib)[None],
+                                torch.from_numpy(rayb)[None])
+    np.testing.assert_array_equal(_np(t_p[0]), np.asarray(t_j))
+    np.testing.assert_array_equal(_np(i_p[0]), np.asarray(i_j))
+    assert _chain_np(trib[twin], rayb[:, n]) == _np(t_p[0])[n]
+    assert int(i_p[0, n]) == first
+
+
 @pytest.mark.parametrize("variant", ["dma", "full"])
 def test_kern_matches_tile_sweep_plain(tiles_ns, variant):
     """The script's own kernel, DMAs and all (interpret mode runs them),
@@ -336,6 +374,84 @@ def test_heavy_layouts_match_plain(heavy, name):
     t, f = ns[f"make_{name}"](8)()
     np.testing.assert_array_equal(np.asarray(t)[:7], _np(want[0]))
     np.testing.assert_array_equal(np.asarray(f)[:7], _np(want[1]))
+
+
+@pytest.fixture(scope="module")
+def heavy_varied():
+    """The script's heavy workload at the test sizes, FMA-proof, with
+    footprints that vary per face and faces that tie in t: columns c + 1
+    (same window) and c + 128 (next window) repeat column c, ids
+    ascending as pack_heavy_windows packs them.  (On a tie across windows
+    Pallas keeps the earlier window's face and the port the smaller id:
+    the same face where ids ascend.)"""
+    ns = _load_script("micro_heavy", HEAVY_SIZES, data=True)
+    count, table, rays = micro_heavy.make_workload("cpu", nb=7, h_live=200,
+                                                   h_cap=384)
+    tbl = _fma_proof(_np(table)).astype(np.float32)
+    rng = np.random.default_rng(6)
+    lo = rng.integers(0, 96, (2, 384))
+    tbl[10], tbl[11] = lo[0], lo[0] + rng.integers(0, 64, 384)
+    tbl[12], tbl[13] = lo[1], lo[1] + rng.integers(0, 64, 384)
+    tbl[10, 200:], tbl[11, 200:] = 1.0, 0.0          # dead: empty footprint
+    dup = np.arange(0, 60, 4)
+    for c in dup:
+        tbl[:14, c + 1] = tbl[:14, c]
+        tbl[:14, c + 128] = tbl[:14, c]
+    table = torch.from_numpy(tbl)
+    rays = torch.from_numpy(_fma_proof(rays))
+    ns["tri_windows"] = jnp.asarray(tbl)
+    ns["rays_blocks"] = jnp.asarray(_np(rays).swapaxes(1, 2))
+    args = (count, table, rays)
+    want = heavy_primary_sweep_plain(*args, cfg=CFG)
+    assert (_np(want[0]) < 3e38).sum() > 100
+    assert np.isin(_np(want[1]), dup).sum() > 10      # ties decided by id
+    return ns, args, want
+
+
+@pytest.mark.parametrize("name", ["v1", "v2", "v3"])
+def test_heavy_layouts_match_plain_on_varied_footprints(heavy_varied, name):
+    """The script's layouts on footprints that hold some rays of a block
+    and not others, and on faces tied in t within and across windows."""
+    ns, args, want = heavy_varied
+    t, f = ns[f"make_{name}"](8)()
+    np.testing.assert_array_equal(np.asarray(t)[:7], _np(want[0]))
+    np.testing.assert_array_equal(np.asarray(f)[:7], _np(want[1]))
+
+
+def _could_not_win(k, det, best_t):
+    """The could-win vote's drop test of csrc/sweep.cuh (win_bound and
+    heavy_face), in f32 numpy."""
+    f = np.float32
+    lim = np.where(best_t >= f(2.0**-100), best_t * (f(1) + f(2.0**-20)),
+                   f(np.inf)).astype(f)
+    ad = np.abs(det)
+    lq = (ad * lim).astype(f)
+    return (np.abs(k) > lq) & (lq >= f(2.0**-100)) & (ad <= f(2.0**100))
+
+
+def test_could_win_bound_keeps_every_winner():
+    """Wherever the could-win vote drops a candidate, its rounded t =
+    |k * (1/det)| exceeds the ray's running t, so no candidate that wins
+    or ties is dropped: checked on k within 64 ulps of best_t * det, over
+    magnitudes from subnormal to near overflow; and the vote does drop
+    candidates a few ulps above a tie."""
+    f = np.float32
+    rng = np.random.default_rng(7)
+    n = 20000
+    best = (10.0 ** rng.uniform(-40, 38, n)).astype(f)
+    best[:100] = f(3e38)                                 # no hit yet
+    det = (rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-40, 38, n)
+           ).astype(f)
+    near = (best.astype(np.float64) * np.abs(det)).astype(f)
+    steps = np.arange(-64, 65, dtype=np.int32)
+    bits = near.view(np.int32)[:, None] + steps[None, :]
+    k = np.where(bits > 0, bits, 0).astype(np.int32).view(f)
+    k = k * np.sign(det)[:, None] * rng.choice([-1, 1], (n, 1)).astype(f)
+    with np.errstate(all="ignore"):
+        t = np.abs(k * (f(1) / det[:, None]))
+    drop = _could_not_win(k, det[:, None], best[:, None])
+    assert not (drop & ~(t > best[:, None])).any()
+    assert (drop & (t < f(3e38))).sum() > n
 
 
 def test_heavy_primary_sweep_interpret_matches_plain(heavy):

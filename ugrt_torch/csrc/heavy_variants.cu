@@ -4,306 +4,264 @@
 // Replaces the Pallas probes _v1_kernel, _v2_kernel and _v3_kernel of
 // scripts/micro_heavy.py:105-183 (launched at :70), which computed
 // _heavy_primary_kernel's result with one window loop per grid step, the
-// window as a grid axis, and a full unroll.  Every variant here returns
-// K2's (t, face) bitwise (heavy_fold in sweep.cuh, -fmad=false), for
-// 128 * MB threads per block, MB ray blocks of 128 rays each:
+// window as a grid axis, and a full unroll.  Every variant runs K2's face
+// body (heavy_window in sweep.cuh: face-major float4 staging, two rays
+// per thread, footprint ballots, the t-free vote, the could-win vote
+// before the division) and returns K2's (t, face) bitwise.  A block of
+// MB * 64 threads takes MB ray blocks of 128 rays, warp w the 64-ray
+// tile w:
 //
-//   v1  one block walks the live windows; each window is staged in shared
-//       memory once for all its MB * 128 rays; (t, face) in registers.
+//   v1  the block walks the live windows and stages each once for all
+//       its rays (heavy_walk in sweep.cuh: K2's own layout, which is v1
+//       at MB = 2).
 //   v2  the grid is (ceil(NB / MB), NWH); a block whose window is dead
 //       exits at once.  Windows merge by a 64-bit atomicMin on the key
 //       (float_bits(t) << 32) | face, which orders as lex-min (t, face)
-//       because an accepted t lies in (0, 3e38): positive floats order
-//       as their bits.  An init pass sets every key to (3e38, 2^31-1), an
-//       unpack pass writes t and face.  This is the split design proposed
-//       for K3's long cell-key ranges, measured on K2's data.
-//   v3  NWH is a template constant; the whole table (NWH * 8 KB) is
-//       staged in shared memory once per block, and an unrolled loop over
-//       the windows tests each one under a live predicate.
+//       because an admitted t lies in (0, 3e38) (positive floats order as
+//       their bits) and a face id is >= 0.  The wrapper fills the keys
+//       with the no-hit key and returns t and face as views of them; a
+//       block starts from its rays' keys (any key read is an upper bound
+//       of the result, which sharpens the could-win vote) and writes back
+//       only the keys it lowers.
+//   v3  NWH is a template constant; the live windows of the table are
+//       staged once per block, face-major (NWH * 8 KB: 64 KB for 8
+//       windows, opted in above 48 KB), and the window loop is unrolled
+//       under the live predicate.
 //
-// What bounds them on the H100: ~25 flops per (ray, face), every ray
-// against every live face — compute; the table is NWH x 8 KB.  What the
-// layouts trade: v1 re-stages each window per block (8 KB, 2 syncs),
-// v2 reloads the rays per window and pays one atomic per ray per window
-// but spreads one block's work over NWH blocks, v3 stages once but needs
-// NWH * 8 KB of shared memory per block (opt-in above 48 KB).
+// What bounds them on the H100: instruction issue, as K2 (~21 flops per
+// (ray, face) test, every ray against every live face; the table is
+// NWH x 8 KB).  On the script's data every footprint holds the whole
+// grid and the rays' cells are random, so the footprint ballots skip
+// only dead faces; ~6% of tests survive the t-free rejections, and the
+// could-win vote leaves the division to the few warps where a ray's t
+// could still drop.  What the layouts trade: v1 stages each window per
+// block (8 KB, 2 barriers), v2 reloads the rays per window and pays an
+// atomic per lowered key but spreads a block's work over NWH blocks, v3
+// stages once but holds NWH * 8 KB of shared memory per block.
 
 #include "sweep.cuh"
 
 namespace {
 
 using namespace ugrt;
-constexpr int kWin = 128;
 
-__device__ __forceinline__ int live_windows(const int* heavy_count,
-                                            int nwh) {
-  return min(max((heavy_count[0] + kWin - 1) / kWin, 0), nwh);
-}
-
-struct Ray {
-  float dx, dy, dz, gx, gy;
-  bool valid;
-};
-
-// Thread threadIdx.x of a block of MB ray blocks starting at
-// blockIdx.x * MB; rays past the last block are invalid but still
-// take part in staging and barriers.
-template <int MB>
-__device__ __forceinline__ Ray load_ray(const float* rays, int nb,
-                                        size_t* ray_index) {
-  const size_t ray =
-      static_cast<size_t>(blockIdx.x) * MB * kRays + threadIdx.x;
-  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, ray < static_cast<size_t>(nb) * kRays};
-  if (r.valid) {
-    const float* p = rays + ray * 8;
-    r.dx = p[0];
-    r.dy = p[1];
-    r.dz = p[2];
-    r.gx = p[4];
-    r.gy = p[5];
-  }
-  *ray_index = ray;
-  return r;
-}
-
-// Stage window w of the [16, nwh * 128] table into s[16][128].
-template <int MB>
-__device__ __forceinline__ void stage_window(float (*s)[kWin],
-                                             const float* table,
-                                             size_t ncol, int w) {
-  for (int j = threadIdx.x; j < kComp * kWin; j += MB * kRays)
-    s[j / kWin][j % kWin] =
-        table[(j / kWin) * ncol + static_cast<size_t>(w) * kWin + j % kWin];
-}
-
-template <int MB>
-__global__ void __launch_bounds__(MB * kRays)
+template <int MB, bool kStats>
+__global__ void __launch_bounds__(MB * kHeavyTile)
 heavy_v1_kernel(const float* __restrict__ table, int nwh,
                 const int* __restrict__ heavy_count,
                 const float* __restrict__ rays, int nb, float eps, int abs_t,
-                float* __restrict__ t_out, int* __restrict__ f_out) {
-  __shared__ float s[kComp][kWin];
-  size_t ray;
-  const Ray r = load_ray<MB>(rays, nb, &ray);
-  const size_t ncol = static_cast<size_t>(nwh) * kWin;
-  const int n_live = live_windows(heavy_count, nwh);
-  float best_t = kBig;
-  int best_f = kMaxI;
-  for (int w = 0; w < n_live; ++w) {
-    __syncthreads();
-    stage_window<MB>(s, table, ncol, w);
-    __syncthreads();
-    for (int q = 0; q < kWin; ++q)
-      heavy_fold([&](int c) { return s[c][q]; }, r.dx, r.dy, r.dz, r.gx,
-                 r.gy, eps, abs_t, best_t, best_f);
-  }
-  if (r.valid) {
-    t_out[ray] = best_t;
-    f_out[ray] = best_f;
-  }
+                float* __restrict__ t_out, int* __restrict__ f_out,
+                unsigned long long* __restrict__ stats) {
+  heavy_walk<MB, kStats>(table, nwh, heavy_count, rays, nb, eps, abs_t, t_out,
+                         f_out, stats);
 }
 
-// (float_bits(kBig) << 32) | kMaxI; 0x7f61b1e6 is 3e38f.
-constexpr unsigned long long kInitKey =
-    (static_cast<unsigned long long>(0x7f61b1e6u) << 32) | 0x7fffffffu;
-
-__global__ void key_init_kernel(unsigned long long* key, size_t n) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) key[i] = kInitKey;
+__device__ __forceinline__ unsigned long long pack_key(float t, int f) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(f);
 }
 
-__global__ void key_unpack_kernel(const unsigned long long* __restrict__ key,
-                                  size_t n, float* __restrict__ t_out,
-                                  int* __restrict__ f_out) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const unsigned long long k = key[i];
-    t_out[i] = __uint_as_float(static_cast<unsigned>(k >> 32));
-    f_out[i] = static_cast<int>(k & 0xffffffffu);
-  }
-}
-
-template <int MB>
-__global__ void __launch_bounds__(MB * kRays)
+template <int MB, bool kStats>
+__global__ void __launch_bounds__(MB * kHeavyTile)
 heavy_v2_kernel(const float* __restrict__ table, int nwh,
                 const int* __restrict__ heavy_count,
                 const float* __restrict__ rays, int nb, float eps, int abs_t,
-                unsigned long long* __restrict__ key) {
+                unsigned long long* __restrict__ key,
+                unsigned long long* __restrict__ stats) {
   const int w = blockIdx.y;
-  if (w >= live_windows(heavy_count, nwh)) return;   // whole block
-  __shared__ float s[kComp][kWin];
-  size_t ray;
-  const Ray r = load_ray<MB>(rays, nb, &ray);
-  stage_window<MB>(s, table, static_cast<size_t>(nwh) * kWin, w);
+  if (w >= heavy_live_windows(heavy_count, nwh)) return;   // whole block
+  __shared__ float4 s[kHeavyWin][4];
+  const size_t ray0 = static_cast<size_t>(blockIdx.x) * MB * kRays +
+                      (threadIdx.x >> 5) * kHeavyTile + (threadIdx.x & 31);
+  const bool live = ray0 < static_cast<size_t>(nb) * kRays;  // per warp
+  HeavyRays r;
+  HeavyStats st;
+  unsigned long long k0[2];
+  if (live) {
+    heavy_load(rays, ray0, r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      k0[h] = key[ray0 + 32 * h];
+      heavy_set(r, h, __uint_as_float(static_cast<unsigned>(k0[h] >> 32)),
+                static_cast<int>(k0[h] & 0xffffffffu));
+    }
+  }
+  heavy_stage(s, table, static_cast<size_t>(nwh) * kHeavyWin, w * kHeavyWin,
+              kHeavyWin);
   __syncthreads();
-  float best_t = kBig;
-  int best_f = kMaxI;
-  for (int q = 0; q < kWin; ++q)
-    heavy_fold([&](int c) { return s[c][q]; }, r.dx, r.dy, r.dz, r.gx, r.gy,
-               eps, abs_t, best_t, best_f);
-  if (r.valid && best_t < kBig)
-    atomicMin(key + ray,
-              (static_cast<unsigned long long>(__float_as_uint(best_t)) << 32)
-                  | static_cast<unsigned>(best_f));
+  if (!live) return;
+  heavy_window<kStats>(s, r, eps, abs_t, st);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned long long k1 = pack_key(r.t[h], r.f[h]);
+    if (k1 < k0[h]) atomicMin(key + ray0 + 32 * h, k1);
+  }
+  if (kStats) heavy_add_stats(st, stats);
 }
 
-template <int NWH, int MB>
-__global__ void __launch_bounds__(MB * kRays)
+template <int NWH, int MB, bool kStats>
+__global__ void __launch_bounds__(MB * kHeavyTile)
 heavy_v3_kernel(const float* __restrict__ table,
                 const int* __restrict__ heavy_count,
                 const float* __restrict__ rays, int nb, float eps, int abs_t,
-                float* __restrict__ t_out, int* __restrict__ f_out) {
-  extern __shared__ float s_table[];                 // [16][NWH * 128]
-  constexpr int kCols = NWH * kWin;
-  size_t ray;
-  const Ray r = load_ray<MB>(rays, nb, &ray);
-  for (int j = threadIdx.x; j < kComp * kCols; j += MB * kRays)
-    s_table[j] = table[j];
+                float* __restrict__ t_out, int* __restrict__ f_out,
+                unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 s_table[];               // [NWH * 128][4]
+  auto s = reinterpret_cast<float4 (*)[4]>(s_table);
+  const size_t ray0 = static_cast<size_t>(blockIdx.x) * MB * kRays +
+                      (threadIdx.x >> 5) * kHeavyTile + (threadIdx.x & 31);
+  const bool live = ray0 < static_cast<size_t>(nb) * kRays;  // per warp
+  HeavyRays r;
+  HeavyStats st;
+  if (live) heavy_load(rays, ray0, r);
+  const int n_live = heavy_live_windows(heavy_count, NWH);
+  heavy_stage(s, table, NWH * kHeavyWin, 0, n_live * kHeavyWin);
   __syncthreads();
-  const int n_live = live_windows(heavy_count, NWH);
-  float best_t = kBig;
-  int best_f = kMaxI;
+  if (!live) return;
 #pragma unroll
   for (int w = 0; w < NWH; ++w) {
-    if (w < n_live) {
-      for (int q = 0; q < kWin; ++q)
-        heavy_fold([&](int c) { return s_table[c * kCols + w * kWin + q]; },
-                   r.dx, r.dy, r.dz, r.gx, r.gy, eps, abs_t, best_t, best_f);
-    }
+    if (w < n_live) heavy_window<kStats>(s + w * kHeavyWin, r, eps, abs_t, st);
   }
-  if (r.valid) {
-    t_out[ray] = best_t;
-    f_out[ray] = best_f;
-  }
+  heavy_store(r, ray0, t_out, f_out);
+  if (kStats) heavy_add_stats(st, stats);
 }
 
-template <int NWH, int MB>
-cudaError_t launch_v3(const float* table, const int* heavy_count,
-                      const float* rays, int nb, float eps, int abs_t,
-                      float* t_out, int* f_out, cudaStream_t stream) {
-  const int smem = kComp * NWH * kWin * static_cast<int>(sizeof(float));
-  auto kernel = heavy_v3_kernel<NWH, MB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(nb + MB - 1) / MB, MB * kRays, smem, stream>>>(
-      table, heavy_count, rays, nb, eps, abs_t, t_out, f_out);
-  return cudaGetLastError();
-}
+struct Args {
+  const float* table;
+  int nwh;
+  const int* heavy_count;
+  const float* rays;
+  int nb;
+  float eps;
+  int abs_t;
+  float* t_out;
+  int* f_out;
+  unsigned long long* key;
+  unsigned long long* stats;
+  cudaStream_t stream;
+};
+
+// One launch of each layout: V1<MB, kStats>::run(args), and so on.
+template <int MB, bool kStats>
+struct V1 {
+  static cudaError_t run(const Args& a) {
+    heavy_v1_kernel<MB, kStats><<<(a.nb + MB - 1) / MB, MB * kHeavyTile, 0,
+                                  a.stream>>>(
+        a.table, a.nwh, a.heavy_count, a.rays, a.nb, a.eps, a.abs_t,
+        a.t_out, a.f_out, a.stats);
+    return cudaGetLastError();
+  }
+};
+
+template <int MB, bool kStats>
+struct V2 {
+  static cudaError_t run(const Args& a) {
+    const dim3 grid((a.nb + MB - 1) / MB, a.nwh);
+    heavy_v2_kernel<MB, kStats><<<grid, MB * kHeavyTile, 0, a.stream>>>(
+        a.table, a.nwh, a.heavy_count, a.rays, a.nb, a.eps, a.abs_t, a.key,
+        a.stats);
+    return cudaGetLastError();
+  }
+};
 
 template <int NWH>
-cudaError_t launch_v3_mb(int mb, const float* table, const int* heavy_count,
-                         const float* rays, int nb, float eps, int abs_t,
-                         float* t_out, int* f_out, cudaStream_t stream) {
+struct V3 {
+  template <int MB, bool kStats>
+  struct At {
+    static cudaError_t run(const Args& a) {
+      const int smem = NWH * kHeavyWin * 4 * static_cast<int>(sizeof(float4));
+      auto kernel = heavy_v3_kernel<NWH, MB, kStats>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<(a.nb + MB - 1) / MB, MB * kHeavyTile, smem, a.stream>>>(
+          a.table, a.heavy_count, a.rays, a.nb, a.eps, a.abs_t, a.t_out,
+          a.f_out, a.stats);
+      return cudaGetLastError();
+    }
+  };
+};
+
+// Layout<MB, kStats>::run(args) for mb in {1, 2, 4, 8}, the counting
+// build where args.stats is non-null.
+template <template <int, bool> class Layout>
+int dispatch(int mb, const Args& a) {
+  if (a.nb == 0) return 0;
+  const bool st = a.stats != nullptr;
+  cudaError_t err;
   switch (mb) {
-    case 1: return launch_v3<NWH, 1>(table, heavy_count, rays, nb, eps,
-                                     abs_t, t_out, f_out, stream);
-    case 2: return launch_v3<NWH, 2>(table, heavy_count, rays, nb, eps,
-                                     abs_t, t_out, f_out, stream);
-    case 4: return launch_v3<NWH, 4>(table, heavy_count, rays, nb, eps,
-                                     abs_t, t_out, f_out, stream);
-    case 8: return launch_v3<NWH, 8>(table, heavy_count, rays, nb, eps,
-                                     abs_t, t_out, f_out, stream);
-    default: return cudaErrorInvalidValue;
+    case 1: err = st ? Layout<1, true>::run(a) : Layout<1, false>::run(a);
+      break;
+    case 2: err = st ? Layout<2, true>::run(a) : Layout<2, false>::run(a);
+      break;
+    case 4: err = st ? Layout<4, true>::run(a) : Layout<4, false>::run(a);
+      break;
+    case 8: err = st ? Layout<8, true>::run(a) : Layout<8, false>::run(a);
+      break;
+    default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+Args make_args(const void* table, int nwh, const void* heavy_count,
+               const void* rays, int nb, float eps, int abs_t, void* t_out,
+               void* f_out, void* key, void* stats, void* stream) {
+  return Args{static_cast<const float*>(table), nwh,
+              static_cast<const int*>(heavy_count),
+              static_cast<const float*>(rays), nb, eps, abs_t,
+              static_cast<float*>(t_out), static_cast<int*>(f_out),
+              static_cast<unsigned long long*>(key),
+              static_cast<unsigned long long*>(stats),
+              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
 // The three entry points take the table f32 [16, nwh * 128], heavy_count
-// an int32 scalar on the device, rays f32 [nb, 128, 8], and mb in
-// {1, 2, 4, 8} (128 * mb threads per block); they write t f32 and face
-// int32 [nb, 128] on `stream`.
+// an int32 scalar on the device, rays f32 [nb, 128, 8], mb in
+// {1, 2, 4, 8} (64 * mb threads per block) and `stats`, null or int64 [4]
+// zeroed, for a counting build (the (ray, face) tests whose warp skipped
+// the face at the footprint, at the t-free vote and at the could-win
+// vote, and those that divided); they run on `stream`.
 
+// v1 writes t f32 and face int32 [nb, 128].
 extern "C" int ugrt_heavy_sweep_v1(const void* table, int nwh,
                                    const void* heavy_count, const void* rays,
                                    int nb, float eps, int abs_t, int mb,
-                                   void* t_out, void* f_out, void* stream) {
-  if (nb == 0) return 0;
-  const auto* tb = static_cast<const float*>(table);
-  const auto* hc = static_cast<const int*>(heavy_count);
-  const auto* ry = static_cast<const float*>(rays);
-  auto* t = static_cast<float*>(t_out);
-  auto* f = static_cast<int*>(f_out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int grid = (nb + mb - 1) / mb;
-  switch (mb) {
-    case 1: heavy_v1_kernel<1><<<grid, 1 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, t, f); break;
-    case 2: heavy_v1_kernel<2><<<grid, 2 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, t, f); break;
-    case 4: heavy_v1_kernel<4><<<grid, 4 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, t, f); break;
-    case 8: heavy_v1_kernel<8><<<grid, 8 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, t, f); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                   void* t_out, void* f_out, void* stats,
+                                   void* stream) {
+  return dispatch<V1>(mb, make_args(table, nwh, heavy_count, rays, nb, eps,
+                                    abs_t, t_out, f_out, nullptr, stats,
+                                    stream));
 }
 
-// v2 also takes `key`, scratch of nb * 128 uint64.
+// v2 lowers `key`, uint64 [nb * 128] filled with the no-hit key
+// (bits(3e38) << 32) | (2^31 - 1); nwh <= 65535.
 extern "C" int ugrt_heavy_sweep_v2(const void* table, int nwh,
                                    const void* heavy_count, const void* rays,
                                    int nb, float eps, int abs_t, int mb,
-                                   void* key, void* t_out, void* f_out,
-                                   void* stream) {
-  if (nb == 0) return 0;
-  const auto* tb = static_cast<const float*>(table);
-  const auto* hc = static_cast<const int*>(heavy_count);
-  const auto* ry = static_cast<const float*>(rays);
-  auto* k = static_cast<unsigned long long*>(key);
-  auto st = static_cast<cudaStream_t>(stream);
-  const size_t n = static_cast<size_t>(nb) * kRays;
-  const int pass_blocks = static_cast<int>((n + 255) / 256);
-  if ((mb != 1 && mb != 2 && mb != 4 && mb != 8) || nwh < 1 || nwh > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  key_init_kernel<<<pass_blocks, 256, 0, st>>>(k, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nb + mb - 1) / mb, nwh);
-  switch (mb) {
-    case 1: heavy_v2_kernel<1><<<grid, 1 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, k); break;
-    case 2: heavy_v2_kernel<2><<<grid, 2 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, k); break;
-    case 4: heavy_v2_kernel<4><<<grid, 4 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, k); break;
-    case 8: heavy_v2_kernel<8><<<grid, 8 * kRays, 0, st>>>(
-        tb, nwh, hc, ry, nb, eps, abs_t, k); break;
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  key_unpack_kernel<<<pass_blocks, 256, 0, st>>>(
-      k, n, static_cast<float*>(t_out), static_cast<int*>(f_out));
-  return static_cast<int>(cudaGetLastError());
+                                   void* key, void* stats, void* stream) {
+  if (nwh < 1 || nwh > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<V2>(mb, make_args(table, nwh, heavy_count, rays, nb, eps,
+                                    abs_t, nullptr, nullptr, key, stats,
+                                    stream));
 }
 
-// v3 needs nwh in {1, 2, 4, 8, 16} (the table is staged whole: up to
+// v3 writes t and face as v1 and needs nwh in {1, 2, 4, 8, 16} (up to
 // 128 KB of shared memory).
 extern "C" int ugrt_heavy_sweep_v3(const void* table, int nwh,
                                    const void* heavy_count, const void* rays,
                                    int nb, float eps, int abs_t, int mb,
-                                   void* t_out, void* f_out, void* stream) {
-  if (nb == 0) return 0;
-  const auto* tb = static_cast<const float*>(table);
-  const auto* hc = static_cast<const int*>(heavy_count);
-  const auto* ry = static_cast<const float*>(rays);
-  auto* t = static_cast<float*>(t_out);
-  auto* f = static_cast<int*>(f_out);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+                                   void* t_out, void* f_out, void* stats,
+                                   void* stream) {
+  const Args a = make_args(table, nwh, heavy_count, rays, nb, eps, abs_t,
+                           t_out, f_out, nullptr, stats, stream);
   switch (nwh) {
-    case 1: err = launch_v3_mb<1>(mb, tb, hc, ry, nb, eps, abs_t, t, f, st);
-      break;
-    case 2: err = launch_v3_mb<2>(mb, tb, hc, ry, nb, eps, abs_t, t, f, st);
-      break;
-    case 4: err = launch_v3_mb<4>(mb, tb, hc, ry, nb, eps, abs_t, t, f, st);
-      break;
-    case 8: err = launch_v3_mb<8>(mb, tb, hc, ry, nb, eps, abs_t, t, f, st);
-      break;
-    case 16: err = launch_v3_mb<16>(mb, tb, hc, ry, nb, eps, abs_t, t, f, st);
-      break;
-    default: err = cudaErrorInvalidValue;
+    case 1: return dispatch<V3<1>::At>(mb, a);
+    case 2: return dispatch<V3<2>::At>(mb, a);
+    case 4: return dispatch<V3<4>::At>(mb, a);
+    case 8: return dispatch<V3<8>::At>(mb, a);
+    case 16: return dispatch<V3<16>::At>(mb, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

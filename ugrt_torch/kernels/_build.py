@@ -50,9 +50,9 @@ SIGNATURES = {
     "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F, _I,
                           _I, _P, _P, _P),
     # The probes S1-S3 (ugrt_torch/micro).
-    "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
-    "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
-    "ugrt_heavy_sweep_v3": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
+    "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
+    "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
+    "ugrt_heavy_sweep_v3": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
     "ugrt_coeff_mt_fma": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
     "ugrt_coeff_mt_mma": (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "ugrt_tile_sweep": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),

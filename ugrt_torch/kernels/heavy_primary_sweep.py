@@ -7,9 +7,11 @@ _heavy_primary_kernel_unrolled, :641-724, with _heavy_common :605-635),
 two bitwise-equal variants picked by live density; one kernel covers
 both here.  Every ray tests every live heavy face of the comp-major
 [16, NWH * 128] table from ``pack_heavy_windows``; the op order is
-ugrt.trace.heavy.heavy_min_t's.  The kernel tests the footprint and the
-bounds that need no t first and lets a warp skip the rest of a face
-that none of its rays passes (the same values result).
+ugrt.trace.heavy.heavy_min_t's.  The kernel tests the footprint, then
+the bounds that need no t, then whether a ray's t could still drop, and
+lets a warp skip the rest of a face where none of its rays passes (the
+same values result).  The S3 probes (``heavy_variants``) share its face
+body.
 
 ``heavy_primary_sweep`` launches the kernel for CUDA tensors and runs
 ``heavy_primary_sweep_plain`` only for CPU tensors.
@@ -25,6 +27,9 @@ from ugrt_torch.kernels import _build
 from ugrt_torch.kernels._plain import BIG, MAXI, lexmin_into, sweep_items
 
 WIN = 128
+# The counting builds' counts (K2 and the S3 probes), in this order.
+STATS = ("skipped_footprint", "skipped_before_division",
+         "skipped_could_not_win", "divided")
 
 
 def _check(heavy_count, table, rays):
@@ -38,6 +43,11 @@ def _check(heavy_count, table, rays):
     if rays.data_ptr() % 16:
         raise ValueError("rays: the kernel reads it as float4; its data "
                          "must be 16-byte aligned")
+
+
+def new_stats(device):
+    """The zeroed int64 counts a counting build adds to."""
+    return torch.zeros((len(STATS),), dtype=torch.int64, device=device)
 
 
 def _launch(heavy_count, table, rays, cfg, stats):
@@ -75,19 +85,18 @@ heavy_primary_sweep.launches = 0
 def heavy_primary_sweep_stats(heavy_count, table, rays, *,
                               cfg: RenderConfig):
     """The kernel's counts on these inputs (CUDA tensors only), in (ray,
-    face) tests: those whose warp skipped the face at the footprint vote,
-    at the vote before the division, and that took the division.  A
-    measurement aid: it launches a counting build of the kernel and is no
-    launch of the main path."""
+    face) tests (``STATS``): those whose warp skipped the face at the
+    footprint, at the t-free vote and at the could-win vote, and those
+    that divided.  A measurement aid: it launches a counting build of the
+    kernel and is no launch of the main path."""
     _check(heavy_count, table, rays)
     if rays.device.type != "cuda":
         raise ValueError("heavy_primary_sweep_stats: the counts are the "
                          "CUDA kernel's")
-    stats = torch.zeros((3,), dtype=torch.int64, device=rays.device)
+    stats = new_stats(rays.device)
     _launch(heavy_count, table, rays, cfg, stats)
-    fp, pre, div = stats.tolist()
-    return dict(skipped_footprint=fp, skipped_before_division=pre,
-                divided=div)
+    return dict(zip(STATS, stats.tolist()))
+
 
 
 def heavy_primary_sweep_plain(heavy_count, table, rays, *,

@@ -1,9 +1,10 @@
 """The sweep kernels on the card: K1, K2 or K3 timed on the inputs of the
-flagship frames, per chunk size, against another tree's kernel.
+flagship frames, per chunk size, or the probes S2 and S3 on their
+scripts' workloads, per variant, against another tree's kernel.
 
-    python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3] [--parent DIR]
-        [--chunks 1 2 4 8] [--out results.json] [--inputs saved.pt]
-        [--seed N]
+    python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3|s2|s3]
+        [--parent DIR] [--chunks 1 2 4 8] [--out results.json]
+        [--inputs saved.pt] [--seed N]
 
 Renders one flagship frame (1024², 128x128 grid, the 75k-triangle
 procedural cathedral, spot) per light-grid mode, windowed and
@@ -14,22 +15,27 @@ its sites (cell key and footprint box).  It adds synthetic cases: for K1
 ``skewed_primary_case`` (one ray block whose cells span 120 windows next
 to empty ranges and two-cell blocks), for K3 ``skewed_case`` (one ray
 block whose cells span hundreds of windows next to blocks with empty
-ranges, and the same with every real ray occluded).  Then it times the
-kernel on those inputs in fresh processes, one per tree: with
+ranges, and the same with every real ray occluded).  S2 (``tile_sweep``)
+and S3 (``heavy_sweep_v1/v2/v3``) take their scripts' workloads
+(``micro.pallas_micro``, ``micro.micro_heavy``) instead.  Then it times
+the kernel on those inputs in fresh processes, one per tree: with
 ``--parent DIR`` (an unpacked checkout of another commit) in the order
 parent, this tree, this tree, parent, so that the two kernels meet the
 card in turns.  A kernel with a ``chunk`` argument is timed at every
-chunk size, one without it once.  Every result is held against that
-tree's plain version on the same inputs (K1, K2 bitwise; K3 exactly).
-Prints one line per site and process, with the device time of each
-CUDA kernel of a call (torch.profiler) and this tree's warp counts for
-K1 and K2, and writes them all to ``--out``.
+chunk size, S2 at every variant and ``wchunk`` (8, 64), S3 at every
+layout and ``mb``, others once.  Every result is held against that
+tree's plain version on the same inputs (K1, K2, S2, S3 bitwise; K3
+exactly).  Prints one line per site and process, with the device time of
+each CUDA kernel of a call (torch.profiler) and the warp counts of the
+counting builds a tree has (K1, K2, S3), and writes them all to
+``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import importlib
 import inspect
 import json
@@ -62,6 +68,8 @@ KERNELS = {
     "k2": ("heavy_primary_sweep", "heavy_primary_sweep", "primary"),
     "k3": ("shadow_sweep", "shadow_sweep", "shadow"),
 }
+# The probes: the micro module whose workload they take.
+PROBES = {"s2": "pallas_micro", "s3": "micro_heavy"}
 
 
 def _blocks(rng, n_cells, normal_cells):
@@ -202,7 +210,14 @@ def skewed_primary_case(device, seed=0):
 
 def capture(path, seed, kernel):
     """Record ``kernel``'s inputs on the flagship frames and save them
-    with its synthetic cases (on the CPU) to ``path``."""
+    with its synthetic cases (on the CPU) to ``path``; for a probe, its
+    script's workload."""
+    if kernel in PROBES:
+        mod = importlib.import_module(f"ugrt_torch.micro.{PROBES[kernel]}")
+        sites = {"script": dict(args=list(mod.make_workload("cpu")), kw={})}
+        torch.save(sites, path)
+        return sites
+
     from ugrt_torch.api.renderer import Renderer
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
@@ -282,41 +297,72 @@ def device_ms(fn, iters=5):
             for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
+def _calls(kernel, chunks):
+    """[(label, wrapper, its kwargs, plain, plain's kwargs, counting build
+    or None)] of ``kernel`` in this process's tree, one per configuration
+    timed."""
+    if kernel == "s2":
+        from ugrt_torch.kernels import tile_pipeline as tp
+
+        return [(f"{v} wchunk={w}", tp.tile_sweep, dict(variant=v, wchunk=w),
+                 tp.tile_sweep_plain, dict(variant=v), None)
+                for v in tp.VARIANTS for w in (8, 64)]
+    if kernel == "s3":
+        from ugrt_torch.kernels import heavy_variants as hv
+        from ugrt_torch.kernels.heavy_primary_sweep import (
+            heavy_primary_sweep_plain)
+
+        stats = getattr(hv, "heavy_sweep_stats", None)
+        return [(f"{v} mb={mb}", getattr(hv, f"heavy_sweep_{v}"),
+                 dict(mb=mb), heavy_primary_sweep_plain, {},
+                 stats and functools.partial(stats, v))
+                for v in ("v1", "v2", "v3") for mb in hv.MBS]
+    module, attr, _ = KERNELS[kernel]
+    mod = importlib.import_module(f"ugrt_torch.kernels.{module}")
+    fn, plain = getattr(mod, attr), getattr(mod, f"{attr}_plain")
+    stats = getattr(mod, f"{attr}_stats", None)
+    if "chunk" in inspect.signature(fn).parameters:
+        return [(str(c), fn, dict(chunk=c), plain, {}, stats) for c in chunks]
+    return [("None", fn, {}, plain, {}, stats)]
+
+
 def time_sites(path, kernel, chunks, iters):
     """Time this process's wrapper of ``kernel`` (whichever tree is on the
     path) on the saved inputs; one record per site."""
     from ugrt_torch.micro._common import card_line, compare, cuda_ms
 
-    module, attr, _ = KERNELS[kernel]
-    mod = importlib.import_module(f"ugrt_torch.kernels.{module}")
-    fn, plain = getattr(mod, attr), getattr(mod, f"{attr}_plain")
-    stats = getattr(mod, f"{attr}_stats", None)
     # Any object with these fields is a config to either tree's wrapper.
     cfg = types.SimpleNamespace(
         epsilon=1e-21, shadow_epsilon=1e-3,
         quirks=types.SimpleNamespace(shadow_accept_negative_t=True,
                                      abs_t=True))
-    has_chunk = "chunk" in inspect.signature(fn).parameters
+    calls = _calls(kernel, chunks)
     records = []
     for name, site in torch.load(path).items():
         args = [x.cuda() for x in site["args"]]
-        kw = dict(site["kw"], cfg=cfg)
-        want = plain(*args, **kw)
-        want = want if isinstance(want, tuple) else (want,)
-        summary = (dict(occluded=int(want[0].sum())) if kernel == "k3"
-                   else dict(hits=int((want[0] < 3e38).sum())))
+        kw = dict(site["kw"], **({} if kernel == "s2" else dict(cfg=cfg)))
         rec = dict(site=name, kernel=kernel, tree=os.getcwd(),
-                   card=card_line(), **summary, ms={}, mismatches={})
-        for c in (chunks if has_chunk else [None]):
-            ck = dict(kw, chunk=c) if c else kw
+                   card=card_line(), ms={}, mismatches={})
+        wants = {}
+        for label, fn, fkw, plain, pkw, stats in calls:
+            key = tuple(sorted(pkw.items()))
+            if key not in wants:
+                want = plain(*args, **kw, **pkw)
+                wants[key] = want if isinstance(want, tuple) else (want,)
+            want = wants[key]
+            if kernel == "k3":
+                rec["occluded"] = int(want[0].sum())
+            elif kernel != "s2":
+                rec["hits"] = int((want[0] < 3e38).sum())
+            ck = dict(kw, **fkw)
             got = fn(*args, **ck)
             mism, _ = compare(got if isinstance(got, tuple) else (got,), want)
-            rec["mismatches"][str(c)] = mism
-            rec["ms"][str(c)] = cuda_ms(lambda: fn(*args, **ck), iters)
-            rec.setdefault("device_ms", {})[str(c)] = device_ms(
+            rec["mismatches"][label] = mism
+            rec["ms"][label] = cuda_ms(lambda: fn(*args, **ck), iters)
+            rec.setdefault("device_ms", {})[label] = device_ms(
                 lambda: fn(*args, **ck))
             if stats is not None:
-                rec.setdefault("stats", {})[str(c)] = stats(*args, **ck)
+                rec.setdefault("stats", {})[label] = stats(*args, **ck)
         records.append(rec)
         print(json.dumps(rec), flush=True)
     return records
@@ -324,7 +370,8 @@ def time_sites(path, kernel, chunks, iters):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k3")
+    ap.add_argument("--kernel", choices=sorted({*KERNELS, *PROBES}),
+                    default="k3")
     ap.add_argument("--parent", help="root of another tree to time beside "
                     "this one")
     ap.add_argument("--chunks", type=int, nargs="+", default=[1, 2, 4, 8])

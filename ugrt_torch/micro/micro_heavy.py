@@ -8,8 +8,11 @@ The workload is the script's: a [16, 1024] heavy table (691 live faces,
 det = 0 and an empty footprint) and 8193 blocks of 128 random rays,
 from numpy seed 0.  Every variant of ``kernels.heavy_variants`` at each
 ``mb`` is held bitwise against ``heavy_primary_sweep_plain`` and then
-timed; K2 itself (``heavy_primary_sweep``, the shipped kernel, one ray
-block per CUDA block) is timed beside them, as the script timed "cur".
+timed, with the warp counts of its counting build (tests skipped at the
+footprint, at the t-free vote and at the could-win vote, and divided);
+K2 itself (``heavy_primary_sweep``, the shipped kernel: v1's layout at
+two ray blocks per CUDA block) is timed beside them, as the script
+timed "cur".
 """
 
 from __future__ import annotations
@@ -22,15 +25,13 @@ import torch
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.kernels import heavy_variants as hv
 from ugrt_torch.kernels.heavy_primary_sweep import (
-    heavy_primary_sweep, heavy_primary_sweep_plain)
+    heavy_primary_sweep, heavy_primary_sweep_plain, heavy_primary_sweep_stats)
 from ugrt_torch.micro._common import (compare, cuda_ms, print_records,
                                       record, require_cuda)
 
 NB = 8193          # 1M rays / 128 + the script's guard block
 H_LIVE = 691       # live heavy faces
 H_CAP = 1024       # table capacity: 8 windows of 128
-VARIANTS = {"v1": hv.heavy_sweep_v1, "v2": hv.heavy_sweep_v2,
-            "v3": hv.heavy_sweep_v3}
 
 
 def make_workload(device, nb=NB, h_live=H_LIVE, h_cap=H_CAP, seed=0):
@@ -57,7 +58,7 @@ def make_workload(device, nb=NB, h_live=H_LIVE, h_cap=H_CAP, seed=0):
                 rays.swapaxes(1, 2))).to(device))
 
 
-def run(variants=tuple(VARIANTS), mbs=hv.MBS, iters=20, workload=None):
+def run(variants=tuple(hv.VARIANTS), mbs=hv.MBS, iters=20, workload=None):
     """Check, then time, each variant at each mb on the card; returns the
     records (K2 first)."""
     dev = require_cuda()
@@ -69,20 +70,21 @@ def run(variants=tuple(VARIANTS), mbs=hv.MBS, iters=20, workload=None):
     mism, err = compare(heavy_primary_sweep(*args, cfg=cfg), want)
     out = [record("heavy_primary_sweep", "K2", mism, err,
                   cuda_ms(lambda: heavy_primary_sweep(*args, cfg=cfg), iters),
-                  plain_ms)]
+                  plain_ms, stats=heavy_primary_sweep_stats(*args, cfg=cfg))]
     for name in variants:
-        fn = VARIANTS[name]
+        fn = hv.VARIANTS[name]
         for mb in mbs:
             mism, err = compare(fn(*args, cfg=cfg, mb=mb), want)
             ms = cuda_ms(lambda: fn(*args, cfg=cfg, mb=mb), iters)
             out.append(record(fn.__name__, f"mb={mb}", mism, err, ms,
-                              plain_ms))
+                              plain_ms, stats=hv.heavy_sweep_stats(
+                                  name, *args, cfg=cfg, mb=mb)))
     return out
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    variants = [a for a in argv if a in VARIANTS] or list(VARIANTS)
+    variants = [a for a in argv if a in hv.VARIANTS] or list(hv.VARIANTS)
     mbs = [int(a) for a in argv if a.isdigit()] or list(hv.MBS)
     records = run(variants, mbs)
     print_records("S3 heavy-sweep layouts (NB 8193, 691 live of 1024)",
