@@ -5,8 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
 Phases (each prints a line; any failure raises and exits non-zero):
  1. CUDA must be available; prints the card's name and power limit.
- 2. Builds the CUDA kernels from ugrt_torch/csrc with nvcc; prints each
-    kernel's registers and spills (-Xptxas -v).
+ 2. Builds the two CUDA libraries from ugrt_torch/csrc with nvcc, both
+    at once (the sweeps K1-K3, and the probes S1-S3); prints each
+    library's nvcc seconds and each kernel's registers and spills
+    (-Xptxas -v).
  3. Renders one flagship frame per light-grid mode (1024^2, 128x128
     grid, the 75k-triangle procedural cathedral, spot; windowed, then
     reference), records the inputs each sweep kernel gets on that path,
@@ -47,7 +49,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
     half-rate floors (the f32 work at the rate -fmad=false leaves) and
     S2's per-item copy bytes and copy floor, S3's and K2's warp counts;
     S1's three products also as one torch.bmm (the library yardstick,
-    "highest" and TF32); every probe kernel must have launched.
+    "highest" and TF32) and S1's whole function in PyTorch (that bmm,
+    then u and v); every probe kernel must have launched.
+ 8. The reflective frame (render_frame_reflective): the Cornell box at
+    128^2 (uniform grid 8^3) on the card and on the CPU, where the
+    reflection's face and t and the u8 image may differ on at most 0.1%
+    of pixels; then 4 flagship frames in the CLI's default "reference"
+    light mode with ugrt's reflection defaults (32^3 uniform grid,
+    batches of 32 up to 8): CUDA-event and host ms, overflow (fails),
+    the share of primary hits whose reflection hits a face, the uniform
+    grid's pairs and largest cell, the DDA steps, K1-K3's launches; one
+    more frame under torch.profiler.
+ 9. The training loop train() on bench.py's flagship workload (both
+    parameter groups): 6 steps with a checkpoint every 3, then a resume
+    to 8 steps, with CUDA-event and host ms per step and the losses
+    (non-finite fails; the resume must start at step 6 and leave its
+    latest checkpoint at step 7); then tests/test_api.py:87-130 on the
+    card: the single triangle at 64^2 recovers halved materials, its
+    loss below 0.2x the first in 30 steps.
 Then one JSON line with the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -64,6 +83,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Flagship camera and light: bench.py:170-179 (the reference's sibenik
 # presets, ugrt/api/cli.py:28-30).
@@ -419,12 +439,33 @@ def kernel_phase(scene, flagship, camera, light):
     return results
 
 
-def profile_frames(scene, flagship, camera, light, lp):
-    """torch.profiler over one steady spot frame per light mode: prints
-    the device-busy share and the top ops by device time."""
+def profile_once(label, fn, top_n=8):
+    """torch.profiler over one call of fn(): prints its host ms, the
+    device-busy share (sum of CUDA kernel time / host ms), the kernel
+    launches and the top ops by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    say(f"profile: {label}: {wall_ms:.3f} ms host (profiled), device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in kernels)} kernel launches; top: "
+        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
+                    f" x{e.count}" for e in top))
+
+
+def profile_frames(scene, flagship, camera, light, lp):
+    """One steady spot frame per light mode under torch.profiler."""
     from ugrt_torch.api.renderer import Renderer
 
     for mode in ("windowed", "reference"):
@@ -433,22 +474,7 @@ def profile_frames(scene, flagship, camera, light, lp):
                      device="cuda")
         for _ in range(2):
             r.render(camera, [light], lp)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r.render(camera, [light], lp)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        avg = prof.key_averages()
-        kernels = [e for e in avg if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        say(f"profile: {mode}: frame {wall_ms:.3f} ms host (profiled), "
-            f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%),"
-            f" {sum(e.count for e in kernels)} kernel launches; top: "
-            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
-                        f" ms x{e.count}" for e in top))
+        profile_once(f"{mode}: frame", lambda: r.render(camera, [light], lp))
 
 
 def rotated_cornell():
@@ -492,7 +518,6 @@ def step_phase(scene, flagship, camera, light, kernels):
     """Phase 6: the fwd+bwd step on the card.  Returns the launches of
     each K kernel over the warm-up and timed steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.diff.render_grad import render_and_grad
@@ -547,20 +572,7 @@ def step_phase(scene, flagship, camera, light, kernels):
         fail("phase 6: two identical steps differ")
     del outs
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        h0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - h0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    say(f"profile: step: {wall_ms:.3f} ms host (profiled), device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
-        f"{sum(e.count for e in kern)} kernel launches; top: "
-        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
-                    f" x{e.count}" for e in top))
+    profile_once("step", step, top_n=10)
 
     # The rotated Cornell box at 64^2, card against CPU.
     small = dataclasses.replace(flagship, screen_width=64, screen_height=64,
@@ -620,14 +632,23 @@ def probe_work(mod, workload):
             3 * n, 256, 8).contiguous()
         b = rays[items.long() % rays.shape[0]][:, None].expand(
             n, 3, 8, 128).reshape(3 * n, 8, 128).contiguous()
+        def whole():
+            """S1's function in PyTorch: the products, then u and v."""
+            p = torch.bmm(a, b).view(n, 3, 256, 128)
+            inv = 1.0 / p[:, 0]
+            return p[:, 0], p[:, 1] * inv, p[:, 2] * inv
+
         lib = {}
         for name, tf32 in (("highest", False), ("tf32", True)):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             lib[name] = cuda_ms(lambda: torch.bmm(a, b), 5)
+            lib[f"whole_{name}"] = cuda_ms(whole, 5)
         torch.backends.cuda.matmul.allow_tf32 = False
         del a, b
         torch.cuda.empty_cache()
-        extra = {"library_tf32_ms": lib["tf32"]}
+        extra = {"library_tf32_ms": lib["tf32"],
+                 "library_whole_ms": lib["whole_highest"],
+                 "library_whole_tf32_ms": lib["whole_tf32"]}
         return {"coeff_mt_fma": (pairs * 18, read + out, PEAK_F32,
                                  lib["highest"], extra),
                 "coeff_mt_mma": (pairs * 3 * 16, read + out, PEAK_TF32,
@@ -710,7 +731,11 @@ def probe_phase():
         say(f"phase 7: {name}: {flops} flops, {nbyte} bytes: bound "
             f"{b_ms:.5f} ms by {b_by}; {main['ms']:.4f} ms"
             + (f"; torch.bmm {lib_ms:.4f} ms (highest), "
-               f"{extra['library_tf32_ms']:.4f} ms (TF32)" if lib_ms else "")
+               f"{extra['library_tf32_ms']:.4f} ms (TF32); the whole "
+               f"function (bmm, then u and v) "
+               f"{extra['library_whole_ms']:.4f} ms (highest), "
+               f"{extra['library_whole_tf32_ms']:.4f} ms (TF32)"
+               if lib_ms else "")
             + "".join(f"; {k} {extra[k]!r}" for k in (
                 "half_rate_floor_ms", "copy_bytes_per_item", "copy_floor_ms")
                       if k in extra))
@@ -726,6 +751,197 @@ def probe_phase():
             "variants": {r["variant"]: r["ms"] for r in recs},
             **({"warp_counts": main["stats"]} if "stats" in main else {})})
     return entries
+
+
+def frame_inputs(scene, cfg, camera, light, device):
+    """render_frame_reflective's positional arguments for one light, as
+    ugrt's CLI builds them (aspect 1)."""
+    import numpy as np
+
+    from ugrt_torch import bridge
+
+    t = bridge.scene_to_torch(scene, device)
+    cc = bridge.camcoords_to_torch(camera, cfg.fovy_deg, 1.0, device)
+    lcc = bridge.camcoords_to_torch(light, cfg.fovy_deg, 1.0, device)
+    return (t["vertices"], t["faces"], t["mat_index"], t["materials"], cc,
+            lcc[None], bridge.from_numpy(light.eye, device, np.float32))
+
+
+def reflect_phase(scene, flagship, camera, light, kernels):
+    """Phase 8: the reflective frame.  Returns K1-K3's launches over the
+    flagship frames."""
+    import torch
+
+    from ugrt_torch.api.renderer import render_frame_reflective
+    from ugrt_torch.core.host_camera import CameraSpec
+    from ugrt_torch.scene import procedural
+
+    small = dataclasses.replace(flagship, screen_width=128,
+                                screen_height=128, grid_x=16, grid_y=16)
+    box = procedural.cornell_box(subdiv=2)
+    g_cam, g_light = CameraSpec(**GENERIC_CAMERA), CameraSpec(**GENERIC_LIGHT)
+    got, want = (render_frame_reflective(
+        *frame_inputs(box, small, g_cam, g_light, d), cfg=small,
+        capacity=small.pair_capacity(box.num_faces), num_lights=1,
+        use_spot=True, uniform_dims=(8, 8, 8)) for d in ("cuda", "cpu"))
+    n_px = 128 * 128
+    diff = {k: int((got["reflection"][k].cpu() != want["reflection"][k])
+                   .sum()) for k in ("face_id", "t")}
+    diff["image"] = int((got["image"].cpu() != want["image"]).any(-1).sum())
+    hits = int((want["reflection"]["face_id"] >= 0).sum())
+    say(f"phase 8: cornell 128^2 reflective, card vs the port on the CPU: "
+        f"px differ {diff} of {n_px} (bound {int(CPU_PIXEL_BOUND * n_px)});"
+        f" reflection hits {hits}; overflow {bool(got['overflow'])}")
+    if (max(diff.values()) > CPU_PIXEL_BOUND * n_px or hits < n_px // 4
+            or bool(got["overflow"])):
+        fail("phase 8: the card's reflective frame disagrees with the CPU's")
+
+    cfg = dataclasses.replace(flagship, light_grid_mode="reference")
+    args = frame_inputs(scene, cfg, camera, light, "cuda")
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1)
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for i in range(FRAMES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = render_frame_reflective(*args, **kw, use_spot=i >= 1)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - h0) * 1e3
+        ev = start.elapsed_time(end)
+        times.append(ev)
+        refl, ug = out["reflection"], out["uniform_grid"]
+        prim_hit = out["primary"]["face_id"] >= 0
+        share = float((refl["face_id"][prim_hit] >= 0).float().mean())
+        overflow = bool(out["overflow"])
+        say(f"phase 8: reflective frame {i + 1} "
+            f"({'spot' if i else 'lambert'}{', warmup' if i == 0 else ''}): "
+            f"{ev:.3f} ms (CUDA events), {wall:.3f} ms host; overflow "
+            f"{overflow}; primary hits {int(prim_hit.sum())}, of them "
+            f"{share:.4f} reflect onto a face; uniform grid "
+            f"{int(ug.total_pairs)} pairs, largest cell "
+            f"{int(ug.cell_count.max())} faces, "
+            f"{int((ug.cell_count > 0).sum())} cells non-empty; DDA steps "
+            f"{refl['steps']}")
+        if overflow:
+            fail("phase 8: the flagship reflective frame overflowed")
+        if (tuple(out["image"].shape)
+                != (cfg.screen_height, cfg.screen_width, 3)
+                or not torch.isfinite(out["color"]).all() or share < 0.1):
+            fail("phase 8: malformed reflective frame")
+    launches = {name: k.launches for name, k in kernels.items()}
+    say(f"phase 8: launches {launches}; steady "
+        f"{sum(times[1:]) / len(times[1:]):.3f} ms per reflective frame")
+    if min(launches.values()) <= 0:
+        fail("phase 8: a kernel of the reflective frame was never launched")
+    profile_once("reflective frame",
+                 lambda: render_frame_reflective(*args, **kw, use_spot=True))
+    return launches
+
+
+def train_phase(scene, flagship, camera, light, kernels):
+    """Phase 9: the training loop.  Returns K1-K3's launches over the
+    flagship run and its resume."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ugrt_torch import bridge
+    from ugrt_torch.api import checkpoint
+    from ugrt_torch.api import train as tmod
+    from ugrt_torch.core.host_camera import CameraSpec
+    from ugrt_torch.diff.render_grad import render_color
+    from ugrt_torch.scene import procedural
+
+    cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
+    target = np.zeros((cfg.screen_height, cfg.screen_width, 3), np.float32)
+    marks = []                     # (CUDA event, host s) at each step start
+    step_fn = tmod.render_and_grad
+
+    def timed(*a, **k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+        return step_fn(*a, **k)
+
+    def run(tcfg):
+        marks.clear()
+        _, _, log = tmod.train(scene, [camera], light, light.eye, [target],
+                               cfg, tcfg, verbose=False, device="cuda")
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        stops = marks[1:] + [(end, time.perf_counter())]
+        ev = [a.elapsed_time(b) for (a, _), (b, _) in zip(marks, stops)]
+        host = [(hb - ha) * 1e3 for (_, ha), (_, hb) in zip(marks, stops)]
+        return log, ev, host
+
+    for k in kernels.values():
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tmod.render_and_grad = timed
+        try:
+            first = run(tmod.TrainConfig(steps=6, checkpoint_dir=d,
+                                         checkpoint_every=3))
+            # The resume checkpoints every 2 steps, so its last step (7)
+            # leaves one: latest_step then shows where it ended.
+            second = run(tmod.TrainConfig(steps=8, checkpoint_dir=d,
+                                          checkpoint_every=2))
+        finally:
+            tmod.render_and_grad = step_fn
+        latest = checkpoint.latest_step(d)
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, (log, ev, host) in (("steps 0-5", first),
+                                  ("resumed", second)):
+        say(f"phase 9: train {name}: losses {log}; ms per step (CUDA "
+            f"events) {[round(x, 3) for x in ev]}, host "
+            f"{[round(x, 3) for x in host]}")
+    steady = first[1][1:] + second[1]
+    say(f"phase 9: launches {launches}; steady {np.mean(steady):.3f} ms per "
+        f"training step (CUDA events; steps 1-7), host "
+        f"{np.mean(first[2][1:] + second[2]):.3f} ms; resumed run took "
+        f"{len(second[0])} steps; latest checkpoint step {latest}")
+    if not all(np.isfinite(first[0] + second[0])):
+        fail("phase 9: a non-finite loss")
+    if len(first[0]) != 6 or len(second[0]) != 2 or latest != 7:
+        fail("phase 9: the resumed run did not start at step 6 or its "
+             "checkpoints are not where expected")
+    if min(launches.values()) <= 0:
+        fail("phase 9: a kernel of the training loop was never launched")
+
+    # tests/test_api.py:87-130 on the card.
+    small = dataclasses.replace(flagship, screen_width=64, screen_height=64,
+                                grid_x=8, grid_y=8)
+    tri = dataclasses.replace(procedural.single_triangle(), vertices=np.asarray(
+        [[-1.0, -1.1, -3.1], [1.1, -0.9, -2.7], [0.05, 1.2, -3.4]],
+        dtype=np.float32))
+    spec = CameraSpec(eye=(0.01, 0.02, 2.0), look_at=(0, 0, -1),
+                      up=(0, 1, 0), near=0.1, far=100.0)
+    t_light = CameraSpec(eye=(0.5, 1.5, 1.0), look_at=(0, 0, -3),
+                         up=(0, 1, 0), near=0.1, far=100.0)
+    v, f, mi, m, cc, lcc, lp = frame_inputs(tri, small, spec, t_light, "cuda")
+    half = m * torch.tensor(0.5, device="cuda")
+    goal, _ = render_color(v, half, f, mi, cc, lcc, lp, cfg=small,
+                           capacity=small.pair_capacity(tri.num_faces),
+                           num_lights=1, use_spot=True)
+    _, mats, log = tmod.train(
+        tri, [spec], t_light, t_light.eye, [goal], small,
+        tmod.TrainConfig(learning_rate=5e-2, steps=30,
+                         optimize_vertices=False), verbose=False,
+        device="cuda")
+    say(f"phase 9: recovery (single triangle 64^2, materials halved, 30 "
+        f"steps): loss {log[0]!r} -> {log[-1]!r} "
+        f"({log[-1] / log[0]:.4f}x); materials {mats.cpu().tolist()} "
+        f"(goal {half.cpu().tolist()})")
+    if not log[-1] < 0.2 * log[0]:
+        fail("phase 9: the recovery check's loss did not fall below 0.2x")
+    return launches
 
 
 def main(argv=None):
@@ -762,17 +978,24 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # Phase 2: build.
+    # Phase 2: build both libraries at once (every source's nvcc starts
+    # together).
     t0 = time.perf_counter()
-    path, nvcc_s = _build.build()
-    _build.library()
-    log = path.with_suffix(".log")
-    say(f"phase 2: built {path.name} in {nvcc_s:.1f} s (nvcc), "
-        f"{time.perf_counter() - t0:.1f} s with load")
-    for name, regs, stores, loads in ptxas_kernels(
-            log.read_text() if log.exists() else ""):
-        say(f"  ptxas: {name}: {regs} registers, {stores} bytes spill "
-            f"stores, {loads} bytes spill loads")
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        futures = {lib: pool.submit(_build.build, lib)
+                   for lib in _build.LIBRARIES}
+        built = {lib: f.result() for lib, f in futures.items()}
+    for lib, (path, nvcc_s) in built.items():
+        _build.library(lib)
+        say(f"phase 2: built {lib} ({path.name}) in {nvcc_s:.1f} s (nvcc, "
+            f"beside the other library's build)")
+        log = path.with_suffix(".log")
+        for name, regs, stores, loads in ptxas_kernels(
+                log.read_text() if log.exists() else ""):
+            say(f"  ptxas: {name}: {regs} registers, {stores} bytes spill "
+                f"stores, {loads} bytes spill loads")
+    say(f"phase 2: both built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     camera = CameraSpec(**CAMERA)
     light = CameraSpec(**LIGHT)
@@ -851,12 +1074,18 @@ def main(argv=None):
         fail("phase 5: a kernel of the path was never launched")
     profile_frames(scene, flagship, camera, light, lp)
 
-    # Phase 6: the differentiable step; phase 7: the probes.
+    # Phase 6: the differentiable step; phase 7: the probes (the K
+    # kernels' counts are reset before each path and read after it).
     k_wrappers = {"primary_sweep": k1.primary_sweep,
                   "heavy_primary_sweep": k2.heavy_primary_sweep,
                   "shadow_sweep": k3.shadow_sweep}
     step_launches = step_phase(scene, flagship, camera, light, k_wrappers)
     probes = probe_phase()
+
+    # Phase 8: the reflective frame; phase 9: the training loop.
+    reflect_launches = reflect_phase(scene, flagship, camera, light,
+                                     k_wrappers)
+    train_launches = train_phase(scene, flagship, camera, light, k_wrappers)
 
     def entry(name, sites_, source, replaces):
         rs = [results[s] for s in sites_]
@@ -864,6 +1093,8 @@ def main(argv=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "step_launches": step_launches[name],
+                "reflect_launches": reflect_launches[name],
+                "train_launches": train_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
                 "kernel_ms": sum(r["kernel_ms"] for r in rs),

@@ -240,14 +240,21 @@ def test_shadow_sweep_skewed_on_card(card, all_occluded):
         assert torch.equal(got[0], want) and torch.equal(got[1], want)
 
 
-def test_frame_on_card_equals_cpu(card):
+# A second light on another side of the Cornell box.
+SECOND_LIGHT = CameraSpec(eye=(-0.6, 0.5, 0.9), look_at=(0.2, -1.0, 0.0),
+                          up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+
+
+@pytest.mark.parametrize("lights", [[LIGHT], [LIGHT, SECOND_LIGHT]],
+                         ids=["one-light", "two-lights"])
+def test_frame_on_card_equals_cpu(card, lights):
     """The whole small frame (grid, sweeps, shading) on the card equals
-    the port's CPU frame bit for bit."""
+    the port's CPU frame bit for bit, with one light and with two."""
     from ugrt_torch.api.renderer import Renderer
 
     scene = procedural.cornell_box(subdiv=2)
     cfg = dataclasses.replace(SMALL, light_grid_mode="windowed")
-    outs = [Renderer(scene, cfg, device=d).render(CAMERA, [LIGHT], LIGHT.eye)
+    outs = [Renderer(scene, cfg, device=d).render(CAMERA, lights, LIGHT.eye)
             for d in ("cuda", "cpu")]
     for key in ("image", "color", "shadowed"):
         np.testing.assert_array_equal(outs[0][key].cpu().numpy(),
@@ -256,6 +263,66 @@ def test_frame_on_card_equals_cpu(card):
         np.testing.assert_array_equal(outs[0]["primary"][key].cpu().numpy(),
                                       outs[1]["primary"][key].numpy(),
                                       err_msg=key)
+
+
+def test_reflective_frame_on_card_equals_cpu(card):
+    """render_frame_reflective at 128^2 (uniform grid 8^3): the card's
+    reflection (t, face) and image equal the CPU's bit for bit (the same
+    elementwise ops in the same order; no FMA contraction across ops)."""
+    from ugrt_torch import bridge
+    from ugrt_torch.api.renderer import render_frame_reflective
+
+    scene = procedural.cornell_box(subdiv=2)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = bridge.scene_to_torch(scene, dev)
+        cc = bridge.camcoords_to_torch(CAMERA, SMALL.fovy_deg, 1.0, dev)
+        lcc = bridge.camcoords_to_torch(LIGHT, SMALL.fovy_deg, 1.0, dev)
+        outs.append(render_frame_reflective(
+            t["vertices"], t["faces"], t["mat_index"], t["materials"], cc,
+            lcc[None], bridge.from_numpy(LIGHT.eye, dev, np.float32),
+            cfg=SMALL, capacity=SMALL.pair_capacity(scene.num_faces),
+            num_lights=1, use_spot=True, uniform_dims=(8, 8, 8)))
+    got, want = outs
+    assert not bool(got["overflow"])
+    assert int((want["reflection"]["face_id"] >= 0).sum()) > 5000
+    for key in ("t", "face_id"):
+        np.testing.assert_array_equal(got["reflection"][key].cpu().numpy(),
+                                      want["reflection"][key].numpy(),
+                                      err_msg=key)
+    np.testing.assert_array_equal(got["image"].cpu().numpy(),
+                                  want["image"].numpy())
+
+
+def test_train_on_card_equals_cpu(card, tmp_path):
+    """train() on the single triangle at 64^2 (materials only, 5 steps,
+    a checkpoint at step 2): losses within rtol 1e-5 of the CPU's (the
+    loss is a mean summed in another order), materials within 1e-6."""
+    from ugrt_torch.api import checkpoint
+    from ugrt_torch.api.train import TrainConfig, train
+
+    cfg = dataclasses.replace(RenderConfig(), screen_width=64,
+                              screen_height=64, grid_x=8, grid_y=8)
+    scene = procedural.single_triangle()
+    spec = CameraSpec(eye=(0.01, 0.02, 2.0), look_at=(0, 0, -1),
+                      up=(0, 1, 0), near=0.1, far=100.0)
+    light = CameraSpec(eye=(0.5, 1.5, 1.0), look_at=(0, 0, -3),
+                       up=(0, 1, 0), near=0.1, far=100.0)
+    target = np.full((64, 64, 3), 0.1, np.float32)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        tcfg = TrainConfig(learning_rate=5e-2, steps=5,
+                           optimize_vertices=False,
+                           checkpoint_dir=str(tmp_path / dev),
+                           checkpoint_every=3)
+        runs.append(train(scene, [spec], light, light.eye, [target], cfg,
+                          tcfg, verbose=False, device=dev))
+        assert checkpoint.latest_step(str(tmp_path / dev)) == 2
+    (_, m_g, log_g), (_, m_c, log_c) = runs
+    assert m_g.device.type == "cuda" and log_g[-1] < log_g[0]
+    np.testing.assert_allclose(log_g, log_c, rtol=1e-5)
+    np.testing.assert_allclose(m_g.cpu().numpy(), m_c.numpy(), rtol=0,
+                               atol=1e-6)
 
 
 def test_render_and_grad_card_equals_cpu(card):

@@ -92,7 +92,8 @@ def _write_obj(path):
 
 @pytest.mark.parametrize("what", [
     "RenderConfig", "QuirkConfig", "pair_capacity", "camcoords",
-    "cathedral", "cornell_box", "obj_parser", "load_scene", "bridge"])
+    "cathedral", "cornell_box", "single_triangle", "obj_parser",
+    "load_scene", "bridge"])
 def test_copies_equal_ugrt(what, tmp_path):
     if what == "RenderConfig":
         a, b = config_j.RenderConfig(), config_t.RenderConfig()
@@ -120,9 +121,10 @@ def test_copies_equal_ugrt(what, tmp_path):
                 assert a.dtype == b.dtype == np.float32
                 np.testing.assert_array_equal(a.view(np.int32),
                                               b.view(np.int32))
-    elif what in ("cathedral", "cornell_box"):
-        kw = (dict(num_faces_target=2000, seed=0) if what == "cathedral"
-              else dict(subdiv=2))
+    elif what in ("cathedral", "cornell_box", "single_triangle"):
+        kw = {"cathedral": dict(num_faces_target=2000, seed=0),
+              "cornell_box": dict(subdiv=2),
+              "single_triangle": dict(z=-2.5)}[what]
         a, b = getattr(proc_j, what)(**kw), getattr(proc_t, what)(**kw)
         for f in ("vertices", "faces", "mat_index", "materials"):
             x, y = getattr(a, f), getattr(b, f)

@@ -407,3 +407,34 @@ def test_cpu_tensors_take_the_plain_path(small_cfg, cornell,
         k1.primary_sweep(tri.double(), rows, w_lo, w_hi, cfg=cfg)
     with pytest.raises(ValueError):
         k3.shadow_sweep(tri, rows[:, :64], w_lo, w_hi, cfg=cfg)
+
+
+def test_build_keeps_the_probes_apart():
+    """The sweeps K1-K3 and the probes S1-S3 build as two libraries: each
+    library's entry points are defined in its own sources, the error
+    string in the source both link, and each library's key covers its
+    sources and the local headers they include, and nothing else."""
+    import re
+
+    from ugrt_torch.kernels import _build
+
+    defined = {}
+    for lib in _build.LIBRARIES:
+        text = "".join(p.read_text() for p in _build.sources(lib))
+        defined[lib] = set(re.findall(r'extern "C"[^(]*?(\w+)\(', text))
+        assert set(_build.SIGNATURES[lib]) | {"ugrt_cuda_error_string"} \
+            == defined[lib], lib
+    assert not set(_build.SIGNATURES["kernels"]) & defined["probes"]
+    srcs = {lib: {p.name for p in _build.sources(lib)}
+            for lib in _build.LIBRARIES}
+    assert srcs["kernels"] == {"primary_sweep.cu", "heavy_primary_sweep.cu",
+                               "shadow_sweep.cu", "cuda_error.cu"}
+    assert srcs["kernels"] & srcs["probes"] == {"cuda_error.cu"}
+    every = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
+    assert srcs["kernels"] | srcs["probes"] == every
+    for lib in _build.LIBRARIES:
+        assert [h.name for h in _build.headers(_build.sources(lib))] == [
+            "sweep.cuh"]
+    paths = {_build.library_path(lib) for lib in _build.LIBRARIES}
+    assert len(paths) == 2 and all(p.parent == _build.BUILD_DIR
+                                   for p in paths)

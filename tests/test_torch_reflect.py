@@ -1,0 +1,198 @@
+"""ugrt_torch's reflection bounce vs ugrt: the uniform grid, the DDA and
+the reflective frame (CPU: every sweep runs its plain version).
+
+Tolerances: the uniform grid's integer fields and overflow flag are
+exactly equal.  The DDA is held to brute force as tests/test_reflect.py
+holds ugrt's (>= 99.5% of face ids agree, t within rtol 1e-4 / atol
+1e-4), and to ugrt's DDA on the same inputs (>= 99.9% of face ids equal,
+t within rtol 1e-5 where they agree; ugrt's jitted loop may fuse
+multiply-adds, the port does not).  The reflective frame's u8 image may
+differ from ugrt's jitted frame on at most 0.1% of pixels
+(README.md:108-113: knife-edge rays).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ugrt.core import camera as cam
+from ugrt.core.vecmath import cross, normalize
+from ugrt.grid import build as gbuild_j
+from ugrt.ref import oracle
+from ugrt.scene import procedural
+from ugrt.trace import reflect as treflect_j
+from ugrt_torch import bridge
+from ugrt_torch.grid import build as gbuild_t
+from ugrt_torch.trace import reflect as treflect_t
+from test_reflect import _brute_force
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _padded_aabb(scene):
+    lo, hi = scene.aabb
+    return lo - np.float32(1e-3), hi + np.float32(1e-3)
+
+
+@pytest.mark.parametrize("scene,dims,capacity", [
+    ("cornell", (8, 8, 8), 16384), ("cathedral", (16, 16, 16), 1 << 17),
+    ("cathedral", (16, 16, 16), 4096)],
+    ids=["cornell", "cathedral", "cathedral-overflow"])
+def test_uniform_grid_matches_ugrt(scene, dims, capacity):
+    sc = (procedural.cornell_box(subdiv=2) if scene == "cornell"
+          else procedural.cathedral(num_faces_target=2000, seed=0))
+    lo, hi = _padded_aabb(sc)
+    want = gbuild_j.build_uniform_grid(
+        jnp.asarray(sc.vertices), jnp.asarray(sc.faces), jnp.asarray(lo),
+        jnp.asarray(hi), grid_dims=dims, capacity=capacity)
+    got = gbuild_t.build_uniform_grid(_t(sc.vertices), _t(sc.faces), _t(lo),
+                                      _t(hi), grid_dims=dims,
+                                      capacity=capacity)
+    for field in want._fields:
+        w, g = np.asarray(getattr(want, field)), getattr(got, field).numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        np.testing.assert_array_equal(g, w, err_msg=field)
+    assert bool(got.overflow) == (capacity == 4096)
+
+
+def _reflection_rays(cfg, scene, camera):
+    """The oracle's primary hits and their mirror rays (signed normals),
+    as tests/test_reflect.py builds them."""
+    cc = cam.camcoords_from_spec(camera, cfg.fovy_deg, 1.0)
+    primary = oracle.trace_primary(scene, cc, oracle.build_grid(scene, cc,
+                                                                cfg), cfg)
+    n = cfg.screen_height * cfg.screen_width
+    t = primary["t"].reshape(n)
+    d = primary["ray_dir"].reshape(n, 3).astype(np.float32)
+    fid = primary["face_id"].reshape(n)
+    origins = (cc[:3][None] + t[:, None] * d).astype(np.float32)
+    v = scene.vertices[scene.faces[np.maximum(fid, 0)]]
+    nrm = normalize(cross(normalize(v[:, 1] - v[:, 0]),
+                          normalize(v[:, 2] - v[:, 0])))
+    nrm = nrm * np.where((d * nrm).sum(-1) > 0, -1.0, 1.0)[:, None]
+    rdir = normalize(d - 2.0 * (d * nrm).sum(-1)[:, None] * nrm)
+    return origins, rdir.astype(np.float32), fid >= 0, fid
+
+
+def _dda_torch(cfg, scene, rays, dims, **kw):
+    origins, rdir, hit, fid = rays
+    lo, hi = _padded_aabb(scene)
+    grid = gbuild_t.build_uniform_grid(_t(scene.vertices), _t(scene.faces),
+                                       _t(lo), _t(hi), grid_dims=dims,
+                                       capacity=16384)
+    return treflect_t.trace_uniform_dda(
+        _t(scene.vertices), _t(scene.faces), grid, _t(origins), _t(rdir),
+        _t(hit), _t(fid), _t(lo), _t(hi), dims, bridge.render_config(cfg),
+        **kw)
+
+
+def test_dda_matches_brute_force(small_cfg, cornell, generic_camera):
+    """tests/test_reflect.py:39-93 for the port."""
+    rays = _reflection_rays(small_cfg, cornell, generic_camera)
+    res = _dda_torch(small_cfg, cornell, rays, (8, 8, 8), max_batches=2)
+    assert not bool(res["overflow"])
+    origins, rdir, hit, fid = rays
+    bt, bf = _brute_force(cornell, origins, rdir, hit, fid)
+    t_d, f_d = res["t"].numpy(), res["face_id"].numpy()
+    agree = f_d == bf
+    assert agree.mean() > 0.995, f"only {agree.mean():.4f} agree"
+    both = (bf >= 0) & agree
+    np.testing.assert_allclose(t_d[both], bt[both], rtol=1e-4, atol=1e-4)
+    assert (f_d[hit] >= 0).mean() > 0.4
+
+
+@pytest.mark.parametrize("max_batches,batch", [(2, None), (8, 4), (2, 4)],
+                         ids=["default", "batches-of-4", "overflow"])
+def test_dda_matches_ugrt(small_cfg, cornell, generic_camera, max_batches,
+                          batch):
+    """The same rays through ugrt's trace_uniform_dda and the port's, with
+    deep cells (batches of 4 faces: up to 4 batches a cell) and a cap
+    that cells exceed (overflow)."""
+    dims = (8, 8, 8)
+    rays = _reflection_rays(small_cfg, cornell, generic_camera)
+    origins, rdir, hit, fid = rays
+    lo, hi = _padded_aabb(cornell)
+    ug = gbuild_j.build_uniform_grid(
+        jnp.asarray(cornell.vertices), jnp.asarray(cornell.faces),
+        jnp.asarray(lo), jnp.asarray(hi), grid_dims=dims, capacity=16384)
+    want = treflect_j.trace_uniform_dda(
+        jnp.asarray(cornell.vertices), jnp.asarray(cornell.faces), ug,
+        jnp.asarray(origins), jnp.asarray(rdir), jnp.asarray(hit),
+        jnp.asarray(fid), jnp.asarray(lo), jnp.asarray(hi), dims, small_cfg,
+        max_batches=max_batches, batch=batch)
+    got = _dda_torch(small_cfg, cornell, rays, dims, max_batches=max_batches,
+                     batch=batch)
+    assert bool(got["overflow"]) == bool(want["overflow"]) == (
+        max_batches * (batch or small_cfg.tri_batch) < 14)
+    f_w, f_g = np.asarray(want["face_id"]), got["face_id"].numpy()
+    same = f_g == f_w
+    assert same.mean() >= 0.999, f"{(~same).sum()} face ids differ"
+    assert (f_g >= 0).sum() > 5000
+    np.testing.assert_allclose(got["t"].numpy()[same],
+                               np.asarray(want["t"])[same], rtol=1e-5)
+    assert 0 < got["steps"] <= sum(dims)
+
+
+def test_reflective_frame_matches_ugrt(tiny_cfg, cornell, generic_camera,
+                                       generic_light):
+    from ugrt.api.renderer import render_frame_reflective as frame_j
+    from ugrt_torch.api.renderer import render_frame_reflective as frame_t
+
+    cfg = tiny_cfg
+    cc = cam.camcoords_from_spec(generic_camera, cfg.fovy_deg, 1.0)
+    lcc = cam.camcoords_from_spec(generic_light, cfg.fovy_deg, 1.0)[None]
+    lp = np.asarray(generic_light.eye, np.float32)
+    args = (cornell.vertices, cornell.faces, cornell.mat_index,
+            cornell.materials, cc, lcc, lp)
+    kw = dict(capacity=cfg.pair_capacity(cornell.num_faces), num_lights=1,
+              use_spot=True, uniform_dims=(8, 8, 8))
+    want = frame_j(*(jnp.asarray(a) for a in args), cfg=cfg, **kw)
+    got = frame_t(*(_t(a) for a in args), cfg=bridge.render_config(cfg),
+                  **kw)
+    assert bool(got["overflow"]) == bool(want["overflow"]) is False
+    img_g, img_w = got["image"].numpy(), np.asarray(want["image"])
+    assert img_g.shape == img_w.shape == (64, 64, 3)
+    assert (img_g != img_w).any(-1).sum() <= 0.001 * 64 * 64
+    f_g = got["reflection"]["face_id"].numpy()
+    f_w = np.asarray(want["reflection"]["face_id"])
+    assert (f_g == f_w).mean() >= 0.999 and (f_g >= 0).sum() > 1000
+    np.testing.assert_array_equal(got["shadowed"].numpy(),
+                                  np.asarray(want["shadowed"]))
+    ug = got["uniform_grid"]
+    assert int(ug.total_pairs) == int(ug.cell_count.sum()) > 0
+
+
+def test_reflective_frame_sees_its_mirror(tiny_cfg, cornell, generic_camera,
+                                          generic_light):
+    """Where a reflection ray hits, the mix adds kr * its color: with kr 0
+    the frame is (1 - 0) * the plain frame's color, with kr 1 the
+    reflection's color alone."""
+    from ugrt_torch.api.renderer import render_frame, render_frame_reflective
+
+    cfg = bridge.render_config(tiny_cfg)
+    sc = bridge.scene(cornell)
+    t = bridge.scene_to_torch(sc, "cpu")
+    cc = bridge.camcoords_to_torch(bridge.camera_spec(generic_camera),
+                                   cfg.fovy_deg, 1.0, "cpu")
+    lcc = bridge.camcoords_to_torch(bridge.camera_spec(generic_light),
+                                    cfg.fovy_deg, 1.0, "cpu")[None]
+    lp = bridge.from_numpy(generic_light.eye, "cpu", np.float32)
+    args = (t["vertices"], t["faces"], t["mat_index"], t["materials"], cc,
+            lcc, lp)
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(sc.num_faces),
+              num_lights=1, use_spot=False)
+    plain = render_frame(*args, **kw)
+    none = render_frame_reflective(*args, **kw, reflectivity=0.0,
+                                   uniform_dims=(8, 8, 8))
+    full = render_frame_reflective(*args, **kw, reflectivity=1.0,
+                                   uniform_dims=(8, 8, 8))
+    assert torch.equal(none["color"], plain["color"])
+    hit = full["reflection"]["face_id"] >= 0
+    assert hit.float().mean() > 0.3
+    assert (full["color"][~hit] == 0).all() and full["color"][hit].sum() > 0

@@ -44,6 +44,55 @@ def test_renderer_matches_oracle(small_cfg, cornell, generic_camera,
     np.testing.assert_array_equal(out["image"].numpy(), ores["image"])
 
 
+# A second light (ROADMAP Queue 3): another side of the Cornell box.
+SECOND_LIGHT = dict(eye=(-0.6, 0.5, 0.9), look_at=(0.2, -1.0, 0.0),
+                    up=(0, 0, 1), near=0.1, far=100.0)
+
+
+@pytest.mark.parametrize("mode", ["reference", "extent", "windowed"])
+@pytest.mark.parametrize("num_lights", [0, 2])
+def test_renderer_light_counts_match_oracle(small_cfg, cornell,
+                                            generic_camera, generic_light,
+                                            num_lights, mode):
+    """No light (shaded with the camera's matrices, no shadows) and two
+    lights (shadow masks OR together, shading with the second light's
+    camera), in every light-grid mode, frames with Lambert and with the
+    spotlight.  Held to the numpy oracle, whose light grid is the
+    reference's: its occlusion test equals the "reference" and "extent"
+    modes'.  "windowed" bins with the corrected y dot, so its two-light
+    frame is held to eager ugrt (jax.disable_jit(): jitted XLA fuses
+    multiply-adds), on the spot frame alone (~40 s eager)."""
+    import jax
+
+    from ugrt.api.renderer import Renderer as RendererJax
+    from ugrt.core import camera as cam
+    from ugrt_torch.api.renderer import Renderer
+
+    cfg = dataclasses.replace(small_cfg, light_grid_mode=mode)
+    lights = [generic_light, cam.CameraSpec(**SECOND_LIGHT)][:num_lights]
+    lp = generic_light.eye
+    eager = mode == "windowed" and num_lights == 2
+    r = Renderer(bridge.scene(cornell), bridge.render_config(cfg),
+                 device="cpu")
+    for use_spot in (True,) if eager else (False, True):
+        out = r.render(bridge.camera_spec(generic_camera),
+                       [bridge.camera_spec(s) for s in lights], lp,
+                       use_spot=use_spot)
+        if eager:
+            with jax.disable_jit():
+                want = RendererJax(cornell, cfg).render(
+                    generic_camera, lights, lp, use_spot=use_spot)
+        else:
+            want = oracle.render_frame(cornell, generic_camera, lights, lp,
+                                       small_cfg, use_spot=use_spot)
+        assert not bool(out["overflow"])
+        np.testing.assert_array_equal(out["shadowed"].numpy(),
+                                      np.asarray(want["shadowed"]))
+        np.testing.assert_array_equal(out["image"].numpy(),
+                                      np.asarray(want["image"]))
+        assert (out["shadowed"].sum() > 100) == (num_lights > 0)
+
+
 def test_renderer_windowed_matches_ugrt(small_cfg, cornell, generic_camera,
                                         generic_light):
     """light_grid_mode="windowed" (the bench's), frame 1 Lambert then
@@ -92,14 +141,30 @@ def test_cli_matches_ugrt_cli(tmp_path):
     assert io.read_ppm(str(tmp_path / "torch" / "f-1.ppm")).sum() > 0
 
 
-def test_cli_refuses_reflect(tmp_path):
+def test_cli_reflect_matches_ugrt_cli(tmp_path):
+    """--reflect on tests/test_api.py:39-52's one-triangle scene: the
+    PPMs of both CLIs are byte-identical (frame 0 Lambert, frame 1 spot;
+    a lone triangle reflects onto nothing, so the mix is 0.7 x the
+    frame)."""
+    from ugrt.api import cli as cli_jax
     from ugrt_torch.api import cli as cli_torch
 
     obj = tmp_path / "tri.obj"
     obj.write_text("v -1 -1 -3\nv 1 -1 -3\nv 0 1 -3\nf 1 2 3\n")
-    with pytest.raises(SystemExit, match="reflect"):
-        cli_torch.main([str(obj), "--size", "64", "--grid", "8",
-                        "--reflect", "--device", "cpu"])
+    args = [str(obj), "--size", "64", "--grid", "8", "--tag", "r",
+            "--reflect", "--frames", "2",
+            "--camera", "0.01", "0.02", "2", "0", "0", "-1", "0", "1", "0",
+            "--light-camera", "0.5", "1.5", "1", "0", "0", "-3", "0", "1",
+            "0", "--light-position", "0.5", "1.5", "1"]
+    cli_jax.main(args + ["--out", str(tmp_path / "jax")])
+    cli_torch.main(args + ["--out", str(tmp_path / "torch"), "--device",
+                           "cpu"])
+    for frame in range(2):
+        a = (tmp_path / "jax" / f"r-{frame}.ppm").read_bytes()
+        b = (tmp_path / "torch" / f"r-{frame}.ppm").read_bytes()
+        assert a == b, f"frame {frame} differs"
+    from ugrt.api import io
+    assert io.read_ppm(str(tmp_path / "torch" / "r-1.ppm")).sum() > 0
 
 
 def test_port_imports_no_jax():

@@ -3,14 +3,16 @@
     python -m ugrt_torch.api.cli scene.obj [material_file] [--frames N]
         [--tag name] [--out results/] [--size 1024] [--grid 128]
         [--camera ex ey ez lx ly lz ux uy uz] [--light-camera ...]
-        [--light-position x y z] [--no-shadows] [--png] [--flip]
-        [--device cuda]
+        [--light-position x y z] [--reflect] [--no-shadows] [--png]
+        [--flip] [--device cuda]
 
 The flags are ugrt's, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain PyTorch versions).  Frame 0 shades with Lambert, later
 frames with the spotlight; PPMs (and PNGs) are written by
 ``ugrt_torch.api.io``, byte for byte in ugrt's format.  ``--reflect``
-is not ported yet (ROADMAP Queue 1, reflection bounce) and is refused.
+renders ``render_frame_reflective`` as ugrt's CLI does (aspect 1, the
+light camera's matrices even under ``--no-shadows``).  Plain frames are
+timed by a ``StageTimer``, whose report ends the run.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def build_parser():
     p.add_argument("--near", type=float, default=0.1)
     p.add_argument("--far", type=float, default=100.0)
     p.add_argument("--reflect", action="store_true",
-                   help="not ported yet (ROADMAP: reflection bounce)")
+                   help="2-level uniform-grid reflection bounce")
     p.add_argument("--no-shadows", action="store_true")
     p.add_argument("--png", action="store_true", help="also write PNG")
     p.add_argument("--flip", action="store_true",
@@ -63,15 +65,14 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    from ugrt_torch import bridge
     from ugrt_torch.api import io
-    from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.api.profiler import StageTimer
+    from ugrt_torch.api.renderer import Renderer, render_frame_reflective
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.scene import model as smodel
 
-    if args.reflect:
-        raise SystemExit("error: --reflect is not in ugrt_torch yet (ROADMAP "
-                         "Queue 1: reflection bounce); use ugrt.api.cli")
     if not os.path.exists(args.scene):
         raise SystemExit(f"error: scene not found: {args.scene}")
     if args.size % args.grid != 0 or args.size // args.grid != 8:
@@ -97,15 +98,30 @@ def main(argv=None):
                           up=tuple(c[6:9]), near=args.near, far=args.far)
 
     camera_spec = spec(args.camera)
-    lights = [] if args.no_shadows else [spec(args.light_camera)]
+    light_spec = spec(args.light_camera)
+    lights = [] if args.no_shadows else [light_spec]
 
     os.makedirs(args.out, exist_ok=True)
     renderer = Renderer(scenes[0], cfg, device=args.device)
+    timer = StageTimer()
     for frame in range(args.frames):
         scene = scenes[min(frame, len(scenes) - 1)]
         renderer.update_vertices(scene.vertices)
         t0 = time.perf_counter()
-        out = renderer.render(camera_spec, lights, args.light_position)
+        if args.reflect:
+            cc, lcc = (bridge.camcoords_to_torch(s, cfg.fovy_deg, 1.0,
+                                                 renderer.device)
+                       for s in (camera_spec, light_spec))
+            out = render_frame_reflective(
+                renderer.vertices, renderer.faces, renderer.mat_index,
+                renderer.materials, cc, lcc[None],
+                bridge.from_numpy(args.light_position, renderer.device,
+                                  np.float32),
+                cfg=cfg, capacity=renderer.capacity,
+                num_lights=len(lights), use_spot=frame >= 1)
+        else:
+            out = timer.time_stage("frame", renderer.render, camera_spec,
+                                   lights, args.light_position)
         img = out["image"].cpu().numpy()
         dt = time.perf_counter() - t0
         if bool(out["overflow"]):
@@ -117,6 +133,8 @@ def main(argv=None):
             io.write_png(name + ".png", img, flip=args.flip)
         print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device} -> "
               f"{name}.ppm" + (" (+.png)" if args.png else ""))
+
+    print(timer.report())
 
 
 if __name__ == "__main__":

@@ -6,6 +6,12 @@ primary trace (K1, K2) -> per light: light window or extents, spherical
 grid, shadow trace (K3) -> shade with the last light's camera ->
 shadow darkening.  The tensors stay on the renderer's device; nothing
 moves to the CPU unless that is the device asked for.
+
+``render_frame_reflective`` (ugrt/api/renderer.py:109-226) adds the
+two-level trace: the plain frame, then a uniform world grid over the
+scene's AABB, each primary hit's mirror ray traced through it
+(``trace.reflect``), the reflection hit shaded by Lambert from the light
+position, and the two colors mixed by ``reflectivity``.
 """
 
 from __future__ import annotations
@@ -18,9 +24,11 @@ import torch
 from ugrt_torch import bridge
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.host_camera import CameraSpec
+from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
+from ugrt_torch.trace import reflect as treflect
 from ugrt_torch.trace import shadow as tshadow
 
 
@@ -52,6 +60,96 @@ def render_frame(vertices, faces, mat_index, materials, camcoords,
     image = shaders.add_shadows_u8(shaders.to_u8(color), shadowed)
     return dict(image=image, color=shaders.add_shadows_f32(color, shadowed),
                 shadowed=shadowed, primary=primary, overflow=overflow)
+
+
+def render_frame_reflective(vertices, faces, mat_index, materials,
+                            camcoords, light_camcoords, light_position, *,
+                            cfg: RenderConfig, capacity: int,
+                            num_lights: int, use_spot: bool,
+                            uniform_dims: tuple = (32, 32, 32),
+                            uniform_capacity: int = 1 << 20,
+                            reflectivity: float = 0.3,
+                            max_batches: int = 8,
+                            reflect_batch: int = 32):
+    """A frame with one uniform-grid reflection bounce:
+    color = (1 - kr) * the plain frame's color (shadows as /3) + kr * the
+    reflection hit's Lambert color (0 on a miss), u8 image = clip(color,
+    0, 1) * 255 truncated.  Returns dict(image, color, reflection,
+    shadowed, primary, uniform_grid, overflow): ``overflow`` includes the
+    uniform grid's pair capacity and a cell deeper than max_batches *
+    reflect_batch faces."""
+    base = render_frame(vertices, faces, mat_index, materials, camcoords,
+                        light_camcoords, light_position, cfg=cfg,
+                        capacity=capacity, num_lights=num_lights,
+                        use_spot=use_spot)
+    primary = base["primary"]
+    lo = vertices.amin(dim=0) - 1e-3            # the padded scene AABB
+    hi = vertices.amax(dim=0) + 1e-3
+    ugrid = gbuild.build_uniform_grid(vertices, faces, lo, hi,
+                                      grid_dims=uniform_dims,
+                                      capacity=uniform_capacity)
+
+    # Signed normals for the mirror (the abs quirk is display-only).
+    normals = tprimary.face_normals(vertices, faces)
+    fid = primary["face_id"]
+    prim_signed = dict(t=primary["t"], face_id=fid,
+                       normal=normals[torch.clamp(fid, min=0).long()],
+                       ray_dir=primary["ray_dir"])
+    refl = treflect.reflection_pass(
+        vertices, faces, prim_signed, ugrid, lo, hi, uniform_dims, cfg,
+        camcoords[0:3], max_batches=max_batches, batch=reflect_batch)
+
+    rfid = refl["face_id"]
+    rn = normals[torch.clamp(rfid, min=0).long()]
+    if cfg.quirks.abs_normal:
+        rn = torch.abs(rn)
+    refl_primary = dict(t=refl["t"], face_id=rfid, normal=rn,
+                        ray_dir=refl["ray_dir"])
+    shade_cc = (light_camcoords[num_lights - 1] if num_lights > 0
+                else camcoords)
+    refl_color = _shade_at_points(refl_primary, refl["origin"], shade_cc,
+                                  light_position, mat_index, materials, cfg)
+
+    kr = torch.tensor(reflectivity, dtype=torch.float32,
+                      device=vertices.device)
+    mixed = ((1.0 - kr) * base["color"]
+             + kr * torch.where((rfid >= 0)[..., None], refl_color, 0.0))
+    image = (torch.clamp(mixed, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return dict(image=image, color=mixed, reflection=refl,
+                shadowed=base["shadowed"], primary=primary,
+                uniform_grid=ugrid,
+                overflow=base["overflow"] | ugrid.overflow
+                | refl["overflow"])
+
+
+def _shade_at_points(refl_primary, origins, shade_cc, light_position,
+                     mat_index, materials, cfg: RenderConfig):
+    """Lambert shading (ambient 0.5, no drop-off) where the ray origins
+    vary per pixel: the hit point is origin + t * dir.  Black where the
+    ray missed or the material id is invalid."""
+    mv = shade_cc[16:32]
+    num_materials = materials.shape[0]
+    tri = refl_primary["face_id"]
+    idx = torch.where(tri >= 0, mat_index[torch.clamp(tri, min=0).long()],
+                      -1)
+    valid = (idx >= 0) & (idx < num_materials)
+    mats = materials[torch.clamp(idx, 0, num_materials - 1).long()]
+    ka = mats[..., 3:6] if cfg.quirks.ka_from_kd else mats[..., 0:3]
+    kd = mats[..., 3:6]
+
+    t = refl_primary["t"][..., None]
+    point = origins + t * refl_primary["ray_dir"]
+    light_view = rotate_basis(mv, light_position)
+    point_view = rotate_basis(mv, point)
+    normal_view = normalize(rotate_basis(mv, refl_primary["normal"]))
+    light_dir = normalize(point_view - light_view[None, None])
+    ndotl = dot(light_dir, normal_view)
+    if cfg.quirks.abs_n_dot_l:
+        ndotl = absolute(ndotl)
+    diffuse = torch.where(ndotl > 0, ndotl, 0.0)[..., None]
+    color = torch.minimum(ka * 0.5 + kd * diffuse,
+                          torch.ones((), device=kd.device))
+    return torch.where(valid[..., None] & (t > 0), color, 0.0)
 
 
 class Renderer:

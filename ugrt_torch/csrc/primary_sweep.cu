@@ -215,7 +215,3 @@ extern "C" int ugrt_primary_sweep(const void* tri, int nw, const void* rays,
                : launch<false>(tri, nw, rays, nb, w_lo, w_hi, item_end,
                                chunk, eps, abs_t, keys, stats, s);
 }
-
-extern "C" const char* ugrt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

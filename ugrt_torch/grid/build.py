@@ -1,4 +1,6 @@
-"""CSR grid construction (torch mirror of ugrt/grid/build.py:45-314).
+"""CSR grid construction (torch mirror of ugrt/grid/build.py): the
+perspective and spherical grids (:45-314) and the uniform world grid of
+the reflection bounce (:317-397).
 
 Pipeline per build: per-face cell ranges (ugrt_torch.grid.binning) ->
 optional heavy-face split -> ragged pair expansion -> one stable sort of
@@ -75,12 +77,8 @@ def _expand_and_sort(ranges, gz, cfg: RenderConfig,
     """Ragged expand + stable sort + CSR from per-face cell ranges.
 
     Pair keys replicate grid_kernel.cu:322 with i-major, j-minor
-    enumeration: key = ((gxmin+i) * grid_y + (gymin+j)) * num_slabs + gz.
-    Sorting (key << 32 | face) orders pairs by cell, faces ascending
-    within a cell, padding (face code 2^32-1, sentinel key) last — the
-    order of ugrt's stable key-value sort."""
+    enumeration: key = ((gxmin+i) * grid_y + (gymin+j)) * num_slabs + gz."""
     num_cells = cfg.num_cells
-    sentinel = num_cells
     dev = gz.device
 
     counts = ranges["counts"].to(torch.int32)
@@ -100,8 +98,19 @@ def _expand_and_sort(ranges, gz, cfg: RenderConfig,
     i = torch.div(k, sy, rounding_mode="floor")
     j = k - i * sy
     key = (base[face_c] + (i * cfg.grid_y + j) * cfg.num_slabs).to(torch.int32)
-    key = torch.where(valid, key, sentinel).to(torch.int64)
-    face_code = torch.where(valid, face_c, 2**32 - 1)
+    return _sorted_csr(key, face_c, valid, total, num_cells, capacity)
+
+
+def _sorted_csr(key, face_c, valid, total, num_cells: int,
+                capacity: int) -> DeviceGrid:
+    """Stable sort of the pairs by cell + CSR.  Sorting (key << 32 | face)
+    orders pairs by cell, faces ascending within a cell, padding (face
+    code 2^32-1, sentinel key ``num_cells``) last — the order of ugrt's
+    stable key-value sort; the CSR comes from ``torch.searchsorted`` over
+    the sorted keys."""
+    dev = key.device
+    key = torch.where(valid, key, num_cells).to(torch.int64)
+    face_code = torch.where(valid, face_c.long(), 2**32 - 1)
 
     packed = torch.sort((key << 32) | face_code, stable=True).values
     sorted_key = (packed >> 32).to(torch.int32)
@@ -172,3 +181,62 @@ def build_spherical_grid(vertices, faces, camcoords, *,
             cfg.angular_extent if y_max is None else y_max,
             cfg.quirks.y_forward_dot_typo)
     return _finish(r, cfg, capacity, heavy_threshold)
+
+
+def uniform_face_ranges(vertices, faces, aabb_min, aabb_max, grid_x: int,
+                        grid_y: int, grid_z: int):
+    """World-space uniform-grid binning for reflection rays (ugrt's
+    uniform_face_ranges, the intent of the reference's dead UniformGrid,
+    uniform_grid.h:11-59): each face's AABB over the scene AABB, cells
+    keyed (gx * grid_y + gy) * grid_z + gz.  Returns dict(gmin, gmax
+    [F, 3] int32, counts [F] int32)."""
+    v = vertices[faces.long()]                         # [F, 3, 3]
+    dev = v.device
+    lo = torch.as_tensor(aabb_min, dtype=torch.float32, device=dev)
+    hi = torch.as_tensor(aabb_max, dtype=torch.float32, device=dev)
+    extent = hi - lo
+    dims = torch.tensor([grid_x, grid_y, grid_z], dtype=torch.float32,
+                        device=dev)
+    top = torch.tensor([grid_x - 1, grid_y - 1, grid_z - 1],
+                       dtype=torch.int32, device=dev)
+
+    def cell(p):
+        c = torch.floor((p - lo) / extent * dims).to(torch.int32)
+        return torch.minimum(torch.clamp(c, min=0), top)
+
+    gmin, gmax = cell(v.amin(dim=1)), cell(v.amax(dim=1))
+    size = gmax - gmin + 1
+    counts = (size[:, 0] * size[:, 1] * size[:, 2]).to(torch.int32)
+    return dict(gmin=gmin, gmax=gmax, counts=counts)
+
+
+def build_uniform_grid(vertices, faces, aabb_min, aabb_max, *,
+                       grid_dims: tuple[int, int, int],
+                       capacity: int) -> DeviceGrid:
+    """Uniform world-space grid (ugrt's build_uniform_grid): 3-D ragged
+    expand of each face's cell box (x-major, then y, then z) into a
+    static [capacity] pair buffer, stable sort by cell, CSR; ``overflow``
+    when the pairs exceed ``capacity``.  No heavy-face split."""
+    gx, gy, gz = grid_dims
+    r = uniform_face_ranges(vertices, faces, aabb_min, aabb_max, gx, gy, gz)
+    counts, gmin = r["counts"], r["gmin"]
+    size = r["gmax"] - gmin + 1
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    total = incl[-1]
+    offsets = incl - counts
+
+    p = torch.arange(capacity, dtype=torch.int32, device=counts.device)
+    face_c = segment_ids_from_starts(offsets, capacity).long()
+    valid = p < total
+
+    k = p - offsets[face_c]
+    sy, sz = size[face_c, 1], size[face_c, 2]
+    syz = sy * sz
+    i = torch.div(k, syz, rounding_mode="floor")
+    rem = k - i * syz
+    j = torch.div(rem, sz, rounding_mode="floor")
+    kk = rem - j * sz
+    g = gmin[face_c]
+    key = (((g[:, 0] + i) * gy + (g[:, 1] + j)) * gz
+           + (g[:, 2] + kk)).to(torch.int32)
+    return _sorted_csr(key, face_c, valid, total, gx * gy * gz, capacity)

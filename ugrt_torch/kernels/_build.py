@@ -1,14 +1,19 @@
 """Build the CUDA kernels from ``ugrt_torch/csrc`` at first use.
 
-Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
-together, and the objects link into one shared library with a plain C
-interface, loaded with ctypes.  Each entry point takes device
-pointers, sizes and the CUDA stream as plain integers and returns the
-``cudaError_t`` of its launch.  The library lands in
-``ugrt_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so an edited kernel rebuilds and an unchanged one loads at once.
-Importing this module needs no nvcc: the build runs on the first CUDA
-launch.
+The sources make two libraries, each with a plain C interface loaded
+with ctypes: ``kernels``, the sweeps K1-K3 of the frame, step and
+training paths, and ``probes``, the probes S1-S3 that only
+``ugrt_torch.micro`` launches, so a renderer's first frame waits for
+nvcc on the sweeps alone.  Each ``.cu`` file of a library compiles
+with its own nvcc process, all started together, and the objects link
+into one shared library; ``cuda_error.cu`` (``ugrt_cuda_error_string``)
+goes into both.  Each entry point takes device pointers, sizes and the
+CUDA stream as plain integers and returns the ``cudaError_t`` of its
+launch.  A library lands in ``ugrt_torch/_build/`` under a name keyed
+by a hash of the flags, its own sources and the local headers they
+include, so an edited kernel rebuilds its library and an unchanged one
+loads at once.  Importing this module needs no nvcc: a library is built
+at the first CUDA launch of one of its entry points.
 
 The flags pin the numerics the plain PyTorch versions reproduce: no FMA
 contraction (``-fmad=false``), IEEE division and square root, and
@@ -23,6 +28,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,35 +47,68 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of every entry point; the stream is always the last argument.
-SIGNATURES = {
-    "ugrt_primary_sweep": (_P, _I, _P, _I, _P, _P, _P, _I, _F, _I, _P, _P,
-                           _P),
-    "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P),
-    "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F, _I,
-                          _I, _P, _P, _P),
-    # The probes S1-S3 (ugrt_torch/micro).
-    "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
-    "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
-    "ugrt_heavy_sweep_v3": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P),
-    "ugrt_coeff_mt_fma": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
-    "ugrt_coeff_mt_mma": (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P),
-    "ugrt_tile_sweep": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+# Library -> its .cu sources (each also links COMMON).
+LIBRARIES = {
+    "kernels": ("primary_sweep.cu", "heavy_primary_sweep.cu",
+                "shadow_sweep.cu"),
+    "probes": ("coeff_mt.cu", "tile_pipeline.cu", "heavy_variants.cu"),
 }
+COMMON = ("cuda_error.cu",)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every entry point, by library; the stream is always the
+# last argument.
+SIGNATURES = {
+    "kernels": {
+        "ugrt_primary_sweep": (_P, _I, _P, _I, _P, _P, _P, _I, _F, _I, _P,
+                               _P, _P),
+        "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P,
+                                     _P),
+        "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F,
+                              _I, _I, _P, _P, _P),
+    },
+    "probes": {
+        "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,
+                                _P),
+        "ugrt_heavy_sweep_v2": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P),
+        "ugrt_heavy_sweep_v3": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,
+                                _P),
+        "ugrt_coeff_mt_fma": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
+        "ugrt_coeff_mt_mma": (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P),
+        "ugrt_tile_sweep": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    },
+}
+_LIBRARY_OF = {name: lib for lib, sigs in SIGNATURES.items()
+               for name in sigs}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def sources(lib: str) -> list[Path]:
+    """The .cu files of library ``lib``."""
+    return [CSRC_DIR / name for name in (*LIBRARIES[lib], *COMMON)]
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def headers(srcs) -> list[Path]:
+    """The local headers that ``srcs`` include, directly or through
+    another header, sorted."""
+    seen, todo = set(), list(srcs)
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC_DIR / name
+            if path.exists() and path not in seen:
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+def library_path(lib: str = "kernels") -> Path:
+    """Where library ``lib`` for its current sources and flags lives."""
+    srcs = sources(lib)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in (*srcs, *headers(srcs)):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libugrt_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libugrt_{lib}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -82,16 +121,16 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> tuple[Path, float]:
-    """Compile the library unless it exists; returns (path, seconds spent
-    in nvcc).  A failed compile raises with nvcc's output."""
-    out = library_path()
+def build(lib: str = "kernels") -> tuple[Path, float]:
+    """Compile library ``lib`` unless it exists; returns (path, seconds
+    spent in nvcc).  A failed compile raises with nvcc's output."""
+    out = library_path(lib)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    srcs = sources(lib)
     objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     logs = [o.with_suffix(".log") for o in objs]
     t0 = time.perf_counter()
@@ -115,34 +154,35 @@ def build() -> tuple[Path, float]:
     for path in (*objs, *logs):
         path.unlink(missing_ok=True)
     if any(codes):
-        raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{text}")
+        raise RuntimeError(f"nvcc failed for {lib} (exit codes {codes}):\n"
+                           f"{text}")
     out.with_suffix(".log").write_text(text)
     os.replace(tmp, out)
     return out, seconds
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+def library(lib: str = "kernels") -> ctypes.CDLL:
+    """Library ``lib`` loaded (built first if needed)."""
+    dll = ctypes.CDLL(str(build(lib)[0]))
+    for name, argtypes in SIGNATURES[lib].items():
+        fn = getattr(dll, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.ugrt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ugrt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    dll.ugrt_cuda_error_string.argtypes = [ctypes.c_int]
+    dll.ugrt_cuda_error_string.restype = ctypes.c_char_p
+    return dll
 
 
 def launch(name: str, *args) -> None:
     """Call entry point ``name`` on the current CUDA stream; tensors pass
     as their data pointers.  Raises if the launch reports an error."""
-    lib = library()
+    dll = library(_LIBRARY_OF[name])
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    err = getattr(lib, name)(*cargs, torch.cuda.current_stream().cuda_stream)
+    err = getattr(dll, name)(*cargs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        msg = lib.ugrt_cuda_error_string(err).decode()
+        msg = dll.ugrt_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 

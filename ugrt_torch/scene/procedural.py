@@ -1,6 +1,6 @@
 """Procedural test scenes (the port's copy of ugrt/scene/procedural.py:
-``cornell_box`` and ``cathedral`` with their helpers; the arrays equal
-ugrt's, tests/test_torch_isolation.py).
+``single_triangle``, ``cornell_box`` and ``cathedral`` with their
+helpers; the arrays equal ugrt's, tests/test_torch_isolation.py).
 
 The reference's scenes (sibenik.obj, crashing.obj) are not in its repo, so
 tests and benchmarks use deterministic procedural stand-ins at matching
@@ -13,6 +13,16 @@ from __future__ import annotations
 import numpy as np
 
 from ugrt_torch.scene.model import Scene
+
+
+def single_triangle(z: float = -3.0) -> Scene:
+    """BASELINE config 1: one triangle facing a camera at the origin."""
+    vertices = np.asarray(
+        [[-1.0, -1.0, z], [1.0, -1.0, z], [0.0, 1.0, z]], dtype=np.float32)
+    faces = np.asarray([[0, 1, 2]], dtype=np.int32)
+    mat_index = np.zeros(1, dtype=np.int32)
+    materials = np.asarray([[0.2, 0.2, 0.2, 0.8, 0.3, 0.3]], dtype=np.float32)
+    return Scene(vertices, faces, mat_index, materials)
 
 
 def _quad(v0, v1, v2, v3):

@@ -1,5 +1,6 @@
 """Shading (torch mirror of ugrt/shade/shaders.py:44-164): Lambert,
-spotlight, u8 quantization and shadow darkening.
+spotlight, u8 quantization, shadow darkening and the Perlin debug
+shader.
 
 Semantics as in ugrt: view-space transforms use the 3x3 rotation of the
 shade-time camera (the last light's, main.cu:170); ambient 0.5, diffuse
@@ -7,7 +8,7 @@ shade-time camera (the last light's, main.cu:170); ambient 0.5, diffuse
 misses shade black; shadowed pixels divide their u8 RGB by 3.
 ``gather.gather_rows`` fetches the materials, with a fixed-point backward
 that sums exactly in any order (ugrt's TPU row gather, shaders.py:58-80,
-sums by a one-hot matmul).  ``perlin_shade`` is not ported yet.
+sums by a one-hot matmul).
 """
 
 from __future__ import annotations
@@ -122,3 +123,64 @@ def add_shadows_f32(color_f32, shadowed):
     three = torch.tensor(3.0, dtype=torch.float32, device=color_f32.device)
     return torch.where(shadowed[..., None] == 1, color_f32 / three,
                        color_f32)
+
+
+# ---------------------------------------------------------------------------
+# Perlin value-noise debug shader (ugrt/shade/shaders.py:168-230:
+# perlin_noise_shade + get_material, shader_kernel.cu:4-44, :130-163,
+# :505-547).  The hash wraps in int32 as the reference's C does; torch's
+# int32 *, << and & wrap the same way on the CPU and on CUDA.
+
+
+def _noise_int(x):
+    """Noise(int) hash (shader_kernel.cu:14-18), int32 wraparound."""
+    x = x.to(torch.int32)
+    x = (x << 13) ^ x
+    h = (x * (x * x * 15731 + 789221) + 1376312589) & 0x7FFFFFFF
+    # 2^31 as a device tensor: a power of two, so the quotient is exact.
+    return h.to(torch.float32) / torch.tensor(2147483648.0, device=h.device)
+
+
+def _interp(a, b, c):
+    """InterPolation (shader_kernel.cu:4-7): smoothstep blend."""
+    return a + (b - a) * c * c * (3 - 2 * c)
+
+
+def perlin_noise(x, y, width: int, seed: int, periode):
+    """PerlinNoise single octave (shader_kernel.cu:20-44) at f32 pixel
+    coordinates ``x``, ``y``; the scalar math is ugrt's numpy f32."""
+    freq = np.float32(1.0) / np.float32(periode)
+    num = int((np.float32(width) * freq).astype(np.int32))
+    fx, fy = x * freq, y * freq
+    step_x, step_y = fx.to(torch.int32), fy.to(torch.int32)
+    zone_x = fx - step_x.to(torch.float32)
+    zone_y = fy - step_y.to(torch.float32)
+    nd = step_x + step_y * num + seed
+    a = _interp(_noise_int(nd), _noise_int(nd + 1), zone_x)
+    b = _interp(_noise_int(nd + num), _noise_int(nd + 1 + num), zone_x)
+    return _interp(a, b, zone_y) * np.float32(324.0)
+
+
+def perlin_shade(face_id, width_px: int, height_px: int, cfg: RenderConfig):
+    """perlin_noise_shade (shader_kernel.cu:505-547): screen-space octave
+    stack, black on miss.  Returns u8 RGB [height_px, width_px, 3] on
+    ``face_id``'s device.  Red only, as in the reference: its channel
+    math InterLinear(tmp, 0, 0), (0, tmp, 0), (0, 0, tmp) gives (tmp, 0,
+    0) (ugrt's docstring)."""
+    dev = face_id.device
+    x = torch.arange(width_px, dtype=torch.float32, device=dev)[None, :]
+    y = torch.arange(height_px, dtype=torch.float32, device=dev)[:, None]
+    x = x.expand(height_px, width_px)
+    y = y.expand(height_px, width_px)
+
+    seed, width = 63, 12413
+    scales = (1.0, 0.25, 0.125, 0.0625, 0.03125, 0.0156)
+    tmp = 0
+    for p, s in zip((100, 25, 12.5, 6.25, 3.125, 1.56), scales):
+        v = perlin_noise(x, y, width, seed, p) * np.float32(s)
+        tmp = tmp + v.to(torch.int32).to(torch.float32)
+
+    r = torch.clamp(tmp, 0, 255).to(torch.int32)
+    rgb = torch.stack([r, torch.zeros_like(r), torch.zeros_like(r)],
+                      dim=-1).to(torch.uint8)
+    return torch.where((face_id >= 0)[..., None], rgb, 0).to(torch.uint8)

@@ -19,7 +19,7 @@ import torch
 
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
-from ugrt_torch.core.vecmath import cross, normalize, transform_point
+from ugrt_torch.core.vecmath import cross, dot, normalize, transform_point
 from ugrt_torch.grid.build import DeviceGrid
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
@@ -29,6 +29,38 @@ from ugrt_torch.trace import windows as tw
 # Windows per K1 work item: the fastest of 1, 2, 4 and 8 on the flagship
 # frame (PERF.md, K1: 1.43 windows per ray block on average, 85 at most).
 PCHUNK = 1
+
+
+def moller_trumbore_t(tvec, e1, e2, ray_d, cfg: RenderConfig,
+                      abs_t: bool | None = None):
+    """Batched intersectTriUV t (ugrt/trace/primary.py:92-114,
+    trace_kernel.cu:4-45) in ugrt's op order.
+
+    tvec/e1/e2: [..., K, 3]; ray_d: [..., R, 3].  Returns t [..., R, K]
+    with 0 for rejects and |t| under the abs_t quirk; ``abs_t=False``
+    keeps the signed t (the reflection DDA's test)."""
+    if abs_t is None:
+        abs_t = cfg.quirks.abs_t
+    pvec = cross(ray_d[..., :, None, :], e2[..., None, :, :])
+    det = dot(e1[..., None, :, :], pvec)
+    inv_det = 1.0 / det
+    u = dot(tvec[..., None, :, :], pvec) * inv_det
+    qvec = cross(tvec[..., None, :, :], e1[..., None, :, :])
+    v = dot(ray_d[..., :, None, :], qvec) * inv_det
+    t = dot(e2[..., None, :, :], qvec) * inv_det
+    if abs_t:
+        t = torch.abs(t)
+    reject = ((torch.abs(det) < cfg.epsilon) | (u < 0) | (u > 1) | (v < 0)
+              | (u + v > 1))
+    return torch.where(reject, 0.0, t)
+
+
+def face_normals(vertices, faces):
+    """[F, 3] signed geometric normals, normalize(normalize(e1) x
+    normalize(e2)) (trace_kernel.cu:241-243 without the abs quirk)."""
+    fv = vertices[faces.long()]
+    return normalize(cross(normalize(fv[:, 1] - fv[:, 0]),
+                           normalize(fv[:, 2] - fv[:, 0])))
 
 
 def tile_rays(dirs, cfg: RenderConfig):
@@ -134,10 +166,7 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
 
     # Geometric normals from a per-face table (the same op sequence per
     # face as per pixel, so bitwise equal to the per-pixel form).
-    fv = vertices[faces.long()]
-    fe1 = normalize(fv[:, 1] - fv[:, 0])
-    fe2 = normalize(fv[:, 2] - fv[:, 0])
-    fnrm = normalize(cross(fe1, fe2))
+    fnrm = face_normals(vertices, faces)
     if cfg.quirks.abs_normal:
         fnrm = torch.abs(fnrm)
     nrm = fnrm[torch.clamp(face_id, min=0).long()]
