@@ -67,8 +67,38 @@ Phases (each prints a line; any failure raises and exits non-zero):
     latest checkpoint at step 7); then tests/test_api.py:87-130 on the
     card: the single triangle at 64^2 recovers halved materials, its
     loss below 0.2x the first in 30 steps.
+10. Sharding and host IO.  (a) An NCCL process group of one rank on the
+    card (FileStore): dist.mesh.sharded_render at the flagship in
+    windowed and reference mode, each image bitwise equal to
+    render_color; sharded_train_step on phase 6's workload against
+    render_and_grad (loss rtol 1e-5, gradients within 1e-6 * max|g|, or
+    bitwise); overflow False; 3 steady sharded steps against 3 bare ones
+    (CUDA events), K1-K3's launches on the sharded path, and the NCCL
+    kernels' launches and time in one profiled sharded step.  (b) The
+    strips of worlds 2 and 4 on the one card (render_color's bx0 / n_bx
+    with no group, reference mode): face_id, t and the image side by side
+    bitwise equal to the single-device frame; K1-K3 launches per strip.
+    (c) The native host library built with g++ (seconds printed): the
+    flagship cathedral written with write_obj and loaded by the native
+    and the Python parser (arrays equal), one 1024^2 frame written by
+    both PPM writers (bytes equal), ms of each.  (d) build_packets on the
+    flagship windowed frame's light cells on the card, equal to the CPU
+    and meeting tests/test_packets.py's packet invariants.
 Then one JSON line with the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+With --dist, under ``python -m torch.distributed.run --standalone
+--nproc_per_node=N chip_smoke.py --dist`` on a host with N cards, it
+runs instead the sharded path with one rank per card, the NCCL group
+started without device_id (dist.mesh.make_mesh must bind each rank to
+cuda:LOCAL_RANK): the flagship sharded images in windowed, reference
+and extent mode bitwise equal to each card's render_color and to rank
+0's; the sharded step against render_and_grad (loss rtol 1e-5,
+gradients within 1e-6 * max|g|, every rank's equal to rank 0's); steady
+frame and step ms against one card's, in turns; the NCCL kernels of one
+profiled step; train(use_mesh=True) 3 steps and a resume to 5 against
+the same runs on one card (losses rtol 1e-5, parameters equal on every
+rank, rank 0 alone checkpointing).  Rank 0 prints, last the "ok" line.
 
 Imports no JAX and nothing of ugrt.  The scenes are procedural and made
 from --seed.
@@ -79,6 +109,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -944,11 +975,537 @@ def train_phase(scene, flagship, camera, light, kernels):
     return launches
 
 
+def mesh_phase(scene, flagship, camera, light, kernels):
+    """Phase 10a: the sharded path on an NCCL group of one rank.  Returns
+    K1-K3's launches over its sharded renders and steps."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ugrt_torch.diff.render_grad import render_and_grad, render_color
+    from ugrt_torch.dist import mesh as dmesh
+
+    cap = flagship.pair_capacity(scene.num_faces)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = dmesh.make_mesh()
+            say(f"phase 10a: NCCL group: rank {mesh.rank} of "
+                f"{mesh.world_size} on {mesh.device}, backend "
+                f"{dist.get_backend(mesh.group)}")
+            for k in kernels.values():
+                k.launches = 0
+            for mode in ("windowed", "reference"):
+                cfg = dataclasses.replace(flagship, light_grid_mode=mode)
+                args = step_inputs(scene, cfg, camera, light, "cuda")
+                frame = [args[k] for k in (
+                    "vertices", "materials", "faces", "mat_index",
+                    "camcoords", "light_camcoords", "light_position")]
+                kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
+                want, ovf_w = render_color(*frame, **kw)
+                got, ovf_g = dmesh.sharded_render(mesh, **kw)(*frame)
+                torch.cuda.synchronize()
+                mism = int((got.view(torch.int32)
+                            != want.view(torch.int32)).sum())
+                say(f"phase 10a: {mode}: sharded image {tuple(got.shape)} "
+                    f"vs render_color: {mism} words differ; overflow "
+                    f"{bool(ovf_g)} (single {bool(ovf_w)})")
+                if mism or bool(ovf_g) or bool(ovf_w):
+                    fail(f"phase 10a: {mode}: the sharded image differs or "
+                         "overflowed")
+
+            cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
+            kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
+            args = step_inputs(scene, cfg, camera, light, "cuda")
+            step = dmesh.sharded_train_step(mesh, **kw)
+            positional = [args[k] for k in (
+                "vertices", "materials", "faces", "mat_index", "camcoords",
+                "light_camcoords", "light_position", "target")]
+
+            def sharded():
+                return step(*positional)
+
+            def bare():
+                return render_and_grad(**args, **kw)
+
+            loss, gv, gm, ovf = sharded()
+            ref = bare()
+            loss_s, loss_b = float(loss), float(ref["loss"])
+            errs, same = {}, True
+            for name, g, w in (("grad_vertices", gv, ref["grad_vertices"]),
+                               ("grad_materials", gm,
+                                ref["grad_materials"])):
+                errs[name] = float((g.double() - w.double()).abs().max()
+                                   / w.abs().max())
+                same = same and torch.equal(g, w)
+            say(f"phase 10a: sharded step: loss {loss_s!r} vs "
+                f"render_and_grad {loss_b!r}; max |diff| / max|g| {errs}; "
+                f"gradients {'bitwise equal' if same else 'not bitwise'}; "
+                f"overflow {bool(ovf)}")
+            if (abs(loss_s - loss_b) > 1e-5 * abs(loss_b)
+                    or max(errs.values()) > 1e-6 or bool(ovf)):
+                fail("phase 10a: the sharded step disagrees with the bare "
+                     "step")
+            launches = {name: k.launches for name, k in kernels.items()}
+            say(f"phase 10a: K1-K3 launches on the sharded path (2 renders, "
+                f"1 step) {launches}")
+            if min(launches.values()) <= 0:
+                fail("phase 10a: a kernel of the sharded path was never "
+                     "launched")
+            ms = {}
+            for name, fn in (("bare", bare), ("sharded", sharded),
+                             ("sharded", sharded), ("bare", bare)):
+                ms.setdefault(name, []).append(cuda_ms(fn, 3))
+            say(f"phase 10a: steady step ms (CUDA events, 3 steps, bare / "
+                f"sharded / sharded / bare): bare {ms['bare']}, sharded "
+                f"{ms['sharded']}")
+            nccl_profile(sharded)
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def nccl_profile(fn, label="phase 10a", show=True):
+    """One call of fn() under torch.profiler: the NCCL collectives (host
+    ops and the device time under them) and the NCCL kernels, with their
+    launches (printed where ``show``; every rank of a group profiles)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    ops = [e for e in events if e.device_type.name != "CUDA"
+           and "nccl" in e.key.lower()]
+    kernels = [e for e in dev if "nccl" in e.key.lower()]
+    if not show:
+        return
+    say(f"{label}: one profiled sharded step: NCCL ops "
+        + ("; ".join(f"{e.key} x{e.count} host {e.cpu_time_total / 1e3:.3f}"
+                     f" ms, device {e.device_time_total / 1e3:.4f} ms"
+                     for e in ops) or "none")
+        + "; NCCL kernels "
+        + ("; ".join(f"{e.key[:60]} x{e.count} "
+                     f"{e.self_device_time_total / 1e3:.4f} ms"
+                     for e in kernels) or "none launched")
+        + f" (of {sum(e.self_device_time_total for e in dev) / 1e3:.3f} ms "
+          f"device time, {sum(e.count for e in dev)} launches)")
+
+
+def strip_phase(scene, flagship, camera, light, kernels):
+    """Phase 10b: the strips of worlds 2 and 4 on the one card."""
+    import torch
+
+    from ugrt_torch.diff.render_grad import render_color
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.trace import primary as tprimary
+
+    cfg = dataclasses.replace(flagship, light_grid_mode="reference")
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    args = step_inputs(scene, cfg, camera, light, "cuda")
+    frame = [args[k] for k in ("vertices", "materials", "faces",
+                               "mat_index", "camcoords", "light_camcoords",
+                               "light_position")]
+    v, f, cc = args["vertices"], args["faces"], args["camcoords"]
+    grid = gbuild.build_perspective_grid(v, f, cc, cfg=cfg,
+                                         capacity=kw["capacity"])
+    full = tprimary.trace_primary(v, f, cc, grid, cfg)
+    want, _ = render_color(*frame, **kw)
+    for world in (2, 4):
+        n_bx = cfg.grid_x // world
+        colors, traces, per_strip = [], [], []
+        for d in range(world):
+            for k in kernels.values():
+                k.launches = 0
+            colors.append(render_color(*frame, **kw, bx0=d * n_bx,
+                                       n_bx=n_bx)[0])
+            per_strip.append({n: k.launches for n, k in kernels.items()})
+            traces.append(tprimary.trace_primary(v, f, cc, grid, cfg,
+                                                 bx0=d * n_bx, n_bx=n_bx))
+        mism = {k: int((torch.cat([t[k] for t in traces], 1).view(
+            torch.int32) != full[k].view(torch.int32)).sum())
+            for k in ("face_id", "t")}
+        mism["image"] = int((torch.cat(colors, 1).view(torch.int32)
+                             != want.view(torch.int32)).sum())
+        say(f"phase 10b: world {world} ({n_bx} tile columns per strip): "
+            f"words differing from the single-device frame {mism}; K1-K3 "
+            f"launches per strip {per_strip}")
+        if max(mism.values()) or min(min(p.values()) for p in per_strip) <= 0:
+            fail(f"phase 10b: world {world}: the strips differ from the "
+                 "frame or a kernel was not launched")
+
+
+def native_phase(scene, flagship, camera, light):
+    """Phase 10c: the native host library against the Python paths."""
+    import tempfile
+    import unittest.mock as mock
+
+    import numpy as np
+
+    from ugrt_torch.api import io
+    from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.scene import model, native
+
+    t0 = time.perf_counter()
+    path, gxx_s = native.build()
+    say(f"phase 10c: built {path.name} with g++ in {gxx_s:.2f} s")
+    out = Renderer(scene, dataclasses.replace(
+        flagship, light_grid_mode="windowed"), device="cuda").render(
+        camera, [light], light.eye)
+    img = out["image"].cpu().numpy()
+    with tempfile.TemporaryDirectory() as d:
+        obj, mat = os.path.join(d, "cathedral.obj"), os.path.join(d, "m.txt")
+        t0 = time.perf_counter()
+        model.write_obj(obj, scene)
+        model.write_material_file(mat, scene.materials)
+        write_s = time.perf_counter() - t0
+        ms, loaded = {}, {}
+        for name, prefer in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            loaded[name] = model.load_scene(obj, mat, prefer_native=prefer)
+            ms[f"load {name}"] = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(getattr(loaded["native"], k),
+                                  getattr(loaded["python"], k))
+                   and np.array_equal(getattr(loaded["native"], k),
+                                      getattr(scene, k))
+                   for k in ("vertices", "faces", "mat_index", "materials"))
+        files = {}
+        for name in ("native", "python"):
+            files[name] = os.path.join(d, f"{name}.ppm")
+            with mock.patch.object(native, "available",
+                                   return_value=name == "native"):
+                t0 = time.perf_counter()
+                io.write_ppm(files[name], img, flip=True)
+                ms[f"ppm {name}"] = (time.perf_counter() - t0) * 1e3
+        with open(files["native"], "rb") as a, open(files["python"],
+                                                    "rb") as b:
+            same_ppm = a.read() == b.read()
+        size = os.path.getsize(files["native"])
+    say(f"phase 10c: cathedral {scene.num_faces} faces written in "
+        f"{write_s:.2f} s; load ms native {ms['load native']:.1f}, python "
+        f"{ms['load python']:.1f} ({ms['load python'] / ms['load native']:.1f}"
+        f"x); arrays equal (and equal to the scene) {same}; PPM of the "
+        f"{img.shape[1]}x{img.shape[0]} frame ({size} bytes) ms native {ms['ppm native']:.1f}, python "
+        f"{ms['ppm python']:.1f} ({ms['ppm python'] / ms['ppm native']:.1f}x)"
+        f"; bytes equal {same_ppm}")
+    if not (same and same_ppm):
+        fail("phase 10c: the native and Python paths disagree")
+
+
+def packet_phase(scene, flagship, camera, light):
+    """Phase 10d: build_packets on the flagship windowed frame's light
+    cells, on the card against the CPU, and the packet invariants."""
+    import torch
+
+    from ugrt_torch import bridge
+    from ugrt_torch.api.renderer import Renderer
+    from ugrt_torch.grid import binning
+    from ugrt_torch.trace import shadow as tshadow
+
+    cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
+    primary = Renderer(scene, cfg, device="cuda").render(
+        camera, [light], light.eye)["primary"]
+    eye = bridge.camcoords_to_torch(camera, cfg.fovy_deg, 1.0, "cuda")[0:3]
+    lcc = bridge.camcoords_to_torch(light, cfg.fovy_deg, 1.0, "cuda")
+    window = tshadow.light_window(primary, eye, lcc, cfg)
+    # Each pixel's hit point, as trace_shadow bins it.
+    pts = eye + primary["t"].reshape(-1, 1) * primary["ray_dir"].reshape(
+        -1, 3)
+    cells = binning.ray_light_cells_windowed(
+        pts, lcc, cfg.grid_x, cfg.grid_y, window).reshape(-1).to(torch.int32)
+    ms = {}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        c = cells.to(dev)
+        outs[dev] = tshadow.build_packets(c, cfg)
+        t0 = time.perf_counter()
+        tshadow.build_packets(c, cfg)
+        torch.cuda.synchronize()
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+    (ray, work), (ray_c, work_c) = outs["cuda"], outs["cpu"]
+    equal = torch.equal(ray.cpu(), ray_c) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(work, work_c))
+    sent, mrp = cfg.cell_sentinel, cfg.max_rays_per_packet
+    live = work.packet_cell < sent
+    pos, cnt, cell = (x[live].long() for x in (
+        work.packet_pos, work.packet_count, work.packet_cell))
+    ingrid = cells < sent
+    n_in = int(ingrid.sum())
+    counts = torch.bincount(cells[ingrid].long(), minlength=sent)
+    sorted_cells = cells[ray.long()]
+    ok = {
+        "count": int(live.sum()) == int((-(-counts // mrp)).sum()),
+        "sizes": bool(((cnt >= 1) & (cnt <= mrp)).all()),
+        "tile the in-grid prefix": bool(
+            (pos == torch.cumsum(cnt, 0) - cnt).all()) and int(cnt.sum())
+        == n_in,
+        "cell-pure": bool((torch.repeat_interleave(cell, cnt)
+                           == sorted_cells[:n_in]).all()),
+        "no overflow": not bool(work.overflow),
+    }
+    say(f"phase 10d: build_packets on {cells.numel()} rays ({n_in} in the "
+        f"grid, {int((counts > 0).sum())} cells): {int(live.sum())} packets "
+        f"of {work.packet_pos.numel()} slots; card equals CPU {equal}; "
+        f"invariants {ok}; ms card {ms['cuda']:.3f}, CPU {ms['cpu']:.3f}")
+    if not (equal and all(ok.values())):
+        fail("phase 10d: build_packets disagrees or breaks an invariant")
+
+
+def dist_main(args):
+    """--dist: the sharded path across the cards of one host, one rank per
+    card, under ``python -m torch.distributed.run --standalone
+    --nproc_per_node=N chip_smoke.py --dist``.  Rank 0 prints."""
+    import datetime
+    import tempfile
+    import unittest.mock as mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: chip_smoke --dist needs NVIDIA GPUs")
+    if "LOCAL_RANK" not in os.environ:
+        fail("chip_smoke --dist runs under torch.distributed.run (torchrun)")
+    local = int(os.environ["LOCAL_RANK"])
+
+    from ugrt_torch.api import checkpoint
+    from ugrt_torch.api import train as tmod
+    from ugrt_torch.config import RenderConfig
+    from ugrt_torch.core.host_camera import CameraSpec
+    from ugrt_torch.diff.render_grad import render_and_grad, render_color
+    from ugrt_torch.dist import mesh as dmesh
+    from ugrt_torch.kernels import _build
+    from ugrt_torch.kernels import heavy_primary_sweep as k2
+    from ugrt_torch.kernels import primary_sweep as k1
+    from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.scene import procedural
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # No device_id: make_mesh alone must make the rank's card current.
+    dist.init_process_group("nccl",
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = dmesh.make_mesh()
+        dev, n, rank0 = mesh.device, mesh.world_size, mesh.rank == 0
+        MAX = dist.ReduceOp.MAX
+
+        def say0(msg):
+            if rank0:
+                say(msg)
+
+        def worst(*xs):
+            """Each value's largest over the ranks (floats)."""
+            t = torch.tensor([float(x) for x in xs], dtype=torch.float64,
+                             device=dev)
+            dist.all_reduce(t, op=MAX)
+            return t.tolist()
+
+        def differs_from_rank0(x):
+            """Words in which this rank's ``x`` differs from rank 0's."""
+            x = x.detach().reshape(-1)
+            ref = x.clone()
+            dist.broadcast(ref, 0)
+            return int((ref.view(torch.int32) != x.view(torch.int32)).sum())
+
+        bound = worst(dev != torch.device("cuda", local),
+                      torch.cuda.current_device() != local)
+        if rank0:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()
+            say(f"dist: {n} ranks, backend {dist.get_backend()}, torch "
+                f"{torch.__version__}, CUDA {torch.version.cuda}; cards:")
+            for line in smi:
+                say(line)
+        say0(f"dist: each rank's mesh device is cuda:LOCAL_RANK and its "
+             f"current device: {not any(bound)}")
+        if any(bound):
+            fail("dist: a rank is not bound to its card")
+        if rank0:
+            path, nvcc_s = _build.build("kernels")
+            say(f"dist: built {path.name} in {nvcc_s:.1f} s (nvcc)")
+        dist.barrier(device_ids=[local])
+        _build.library("kernels")
+
+        camera, light = CameraSpec(**CAMERA), CameraSpec(**LIGHT)
+        flagship = RenderConfig()
+        scene = procedural.cathedral(num_faces_target=75000, seed=args.seed)
+        cap = flagship.pair_capacity(scene.num_faces)
+        frame_keys = ("vertices", "materials", "faces", "mat_index",
+                      "camcoords", "light_camcoords", "light_position")
+        kernels = {"primary_sweep": k1.primary_sweep,
+                   "heavy_primary_sweep": k2.heavy_primary_sweep,
+                   "shadow_sweep": k3.shadow_sweep}
+        launches = dict.fromkeys(kernels, 0)
+
+        def on_sharded_path(fn):
+            """fn(), with K1-K3's launches in it added to ``launches``."""
+            for k in kernels.values():
+                k.launches = 0
+            out = fn()
+            for name, k in kernels.items():
+                launches[name] += k.launches
+            return out
+
+        for mode in ("windowed", "reference", "extent"):
+            cfg = dataclasses.replace(flagship, light_grid_mode=mode)
+            kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
+            inputs = step_inputs(scene, cfg, camera, light, dev)
+            frame = [inputs[k] for k in frame_keys]
+            render = dmesh.sharded_render(mesh, **kw)
+            want, ovf_w = render_color(*frame, **kw)
+            got, ovf_g = on_sharded_path(lambda: render(*frame))
+            mism = int((got.view(torch.int32)
+                        != want.view(torch.int32)).sum())
+            w_mism, w_rank0, w_ovf = worst(
+                mism, differs_from_rank0(got), bool(ovf_g) != bool(ovf_w))
+            say0(f"dist: {mode}: {n}-rank sharded {tuple(got.shape)} image vs "
+                 f"each card's render_color: at most {int(w_mism)} words "
+                 f"differ, {int(w_rank0)} from rank 0's; overflow "
+                 f"{bool(ovf_g)} (single {bool(ovf_w)})")
+            if w_mism or w_rank0 or w_ovf or tuple(got.shape) != (
+                    cfg.screen_height, cfg.screen_width, 3):
+                fail(f"dist: {mode}: the sharded image differs")
+            if mode == "windowed":
+                ms = {}
+                for name, fn in (("single", lambda: render_color(
+                        *frame, **kw)), ("sharded", lambda: render(*frame)),
+                                 ("sharded", lambda: render(*frame)),
+                                 ("single", lambda: render_color(
+                                     *frame, **kw))):
+                    ms.setdefault(name, []).append(cuda_ms(fn, 3))
+                w = worst(*ms["sharded"])
+                say0(f"dist: windowed frame ms (CUDA events, 3 frames, "
+                     f"single / sharded / sharded / single, rank 0): single "
+                     f"{ms['single']}, sharded {ms['sharded']} (slowest "
+                     f"rank {w})")
+
+        cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
+        kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
+        inputs = step_inputs(scene, cfg, camera, light, dev)
+        step = dmesh.sharded_train_step(mesh, **kw)
+        positional = [inputs[k] for k in (*frame_keys, "target")]
+
+        def sharded():
+            return step(*positional)
+
+        def bare():
+            return render_and_grad(**inputs, **kw)
+
+        loss, gv, gm, ovf = on_sharded_path(sharded)
+        ref = bare()
+        errs = [float((g.double() - r.double()).abs().max() / r.abs().max())
+                for g, r in ((gv, ref["grad_vertices"]),
+                             (gm, ref["grad_materials"]))]
+        loss_err = abs(float(loss) - float(ref["loss"])) / float(ref["loss"])
+        w = worst(loss_err, *errs, bool(ovf), differs_from_rank0(loss),
+                  differs_from_rank0(gv), differs_from_rank0(gm))
+        say0(f"dist: sharded step: loss {float(loss)!r} vs render_and_grad "
+             f"{float(ref['loss'])!r}; worst rank: loss rel {w[0]:.3e}, "
+             f"grad max|diff|/max|g| vertices {w[1]:.3e}, materials "
+             f"{w[2]:.3e}; overflow {bool(w[3])}; words differing from rank "
+             f"0's: loss {int(w[4])}, gradients {int(w[5])}, {int(w[6])}")
+        if w[0] > 1e-5 or max(w[1:3]) > 1e-6 or any(w[3:]):
+            fail("dist: the sharded step disagrees with the bare step")
+        ms = {}
+        for name, fn in (("bare", bare), ("sharded", sharded),
+                         ("sharded", sharded), ("bare", bare)):
+            ms.setdefault(name, []).append(cuda_ms(fn, 3))
+        w = worst(*ms["sharded"])
+        say0(f"dist: steady step ms (CUDA events, 3 steps, bare / sharded / "
+             f"sharded / bare, rank 0): bare {ms['bare']}, sharded "
+             f"{ms['sharded']} (slowest rank {w})")
+        nccl_profile(sharded, label="dist", show=rank0)
+        w = worst(*(-v for v in launches.values()))
+        say0(f"dist: K1-K3 launches on rank 0's sharded path (3 renders, "
+             f"1 step) {launches}")
+        if max(w) >= 0:
+            fail("dist: a kernel of the sharded path was never launched")
+
+        # train(use_mesh=True): 3 steps, then a resume to 5, a checkpoint
+        # every 2 steps, against the same two runs on one card.
+        target = np.zeros((cfg.screen_height, cfg.screen_width, 3),
+                          np.float32)
+        shared = [tempfile.mkdtemp(prefix="ugrt_ck_") if rank0 else None]
+        dist.broadcast_object_list(shared, 0)
+        saves = []
+        save = checkpoint.save_checkpoint
+
+        def counted(*a, **k):
+            saves.append(a[2] if len(a) > 2 else k["step"])
+            return save(*a, **k)
+
+        runs = {}
+        with tempfile.TemporaryDirectory() as own, mock.patch.object(
+                checkpoint, "save_checkpoint", counted):
+            for use_mesh, d in ((True, shared[0]), (False, own)):
+                logs = []
+                for steps in (3, 5):
+                    verts, mats, log = tmod.train(
+                        scene, [camera], light, light.eye, [target], cfg,
+                        tmod.TrainConfig(steps=steps, checkpoint_dir=d,
+                                         checkpoint_every=2,
+                                         use_mesh=use_mesh),
+                        verbose=False, device=dev)
+                    logs.append(log)
+                    if use_mesh:
+                        dist.barrier(device_ids=[local])
+                runs[use_mesh] = (logs, verts, mats, checkpoint.latest_step(d))
+                if use_mesh:
+                    mesh_saves = list(saves)
+        (logs, verts, mats, latest), single = runs[True], runs[False]
+        flat = np.asarray(logs[0] + logs[1])
+        rel = float(np.abs(flat - np.asarray(single[0][0] + single[0][1])
+                           ).max() / np.abs(flat).max())
+        dv = float((verts - single[1]).abs().max())
+        dm = float((mats - single[2]).abs().max())
+        w = worst(rel, differs_from_rank0(verts), differs_from_rank0(mats),
+                  len(mesh_saves) if not rank0 else 0,
+                  mesh_saves != [1, 3] if rank0 else 0,
+                  [len(x) for x in logs] != [3, 3], latest != 3)
+        say0(f"dist: train(use_mesh=True) 3 steps, then a resume from the "
+             f"step-1 checkpoint to 5: "
+             f"losses {flat.tolist()}; against one card: worst rank loss rel "
+             f"{w[0]:.3e}, rank 0 max |dvertices| {dv:.3e}, |dmaterials| "
+             f"{dm:.3e}; parameter words differing from rank 0's "
+             f"{int(w[1])}, {int(w[2])}; rank 0 saved steps {mesh_saves}, "
+             f"other ranks saved {int(w[3])}; latest checkpoint {latest}")
+        if w[0] > 1e-5 or any(w[1:]):
+            fail("dist: train(use_mesh=True) disagrees with one card, with "
+                 "rank 0, or in its checkpoints")
+        if rank0:
+            import shutil
+
+            shutil.rmtree(shared[0], ignore_errors=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the procedural cathedral")
+    ap.add_argument("--dist", action="store_true",
+                    help="the sharded path across N cards, one rank each, "
+                         "under torch.distributed.run --nproc_per_node=N")
     args = ap.parse_args(argv)
+    if args.dist:
+        return dist_main(args)
+    started = time.perf_counter()
 
     import torch
 
@@ -1087,6 +1644,16 @@ def main(argv=None):
                                      k_wrappers)
     train_launches = train_phase(scene, flagship, camera, light, k_wrappers)
 
+    # Phase 10: sharding (an NCCL group of one, strips on one card), the
+    # native host library, build_packets.
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(scene, flagship, camera, light, k_wrappers)
+    strip_phase(scene, flagship, camera, light, k_wrappers)
+    native_phase(scene, flagship, camera, light)
+    packet_phase(scene, flagship, camera, light)
+    say(f"phase 10 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - started:.1f} s")
+
     def entry(name, sites_, source, replaces):
         rs = [results[s] for s in sites_]
         b_ms = sum(r["bound_ms"] for r in rs)
@@ -1095,6 +1662,7 @@ def main(argv=None):
                 "step_launches": step_launches[name],
                 "reflect_launches": reflect_launches[name],
                 "train_launches": train_launches[name],
+                "mesh_launches": mesh_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
                 "kernel_ms": sum(r["kernel_ms"] for r in rs),

@@ -437,3 +437,109 @@ def test_probes_match_plain_on_card(card, name, case):
             face = mod.heavy_primary_sweep_plain(*workload, cfg=SMALL)[1]
             assert bool(torch.isin(face, torch.arange(0, 126, 3,
                                                       device=card)).any())
+
+
+def _frame_tensors(scene, cfg, device):
+    """(vertices, materials, faces, mat_index, camcoords, light_camcoords,
+    light_position) of the Cornell frame on ``device``."""
+    from ugrt_torch import bridge
+
+    t = bridge.scene_to_torch(scene, device)
+    cc = bridge.camcoords_to_torch(CAMERA, cfg.fovy_deg, 1.0, device)
+    lcc = bridge.camcoords_to_torch(LIGHT, cfg.fovy_deg, 1.0, device)[None]
+    return (t["vertices"], t["materials"], t["faces"], t["mat_index"], cc,
+            lcc, bridge.from_numpy(LIGHT.eye, device, np.float32))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_strips_on_card_equal_cpu(card, n):
+    """trace_primary's strips (dist.mesh's per-rank columns) on the card,
+    side by side, equal the CPU's whole trace bit for bit, and
+    render_color's strips in reference mode equal the CPU's whole
+    render_color."""
+    from ugrt_torch.diff.render_grad import render_color
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.trace import primary as tprimary
+
+    scene = procedural.cornell_box(subdiv=2)
+    kw = dict(cfg=SMALL, capacity=SMALL.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    n_bx = SMALL.grid_x // n
+    traces, colors = {}, {}
+    for dev in ("cuda", "cpu"):
+        v, m, f, mi, cc, lcc, lp = _frame_tensors(scene, SMALL, dev)
+        grid = gbuild.build_perspective_grid(v, f, cc, cfg=SMALL,
+                                             capacity=kw["capacity"])
+        if dev == "cpu":
+            traces[dev] = tprimary.trace_primary(v, f, cc, grid, SMALL)
+            colors[dev] = render_color(v, m, f, mi, cc, lcc, lp, **kw)[0]
+            continue
+        strips = [tprimary.trace_primary(v, f, cc, grid, SMALL,
+                                         bx0=d * n_bx, n_bx=n_bx)
+                  for d in range(n)]
+        traces[dev] = {k: torch.cat([s[k] for s in strips], 1).cpu()
+                       for k in strips[0]}
+        colors[dev] = torch.cat([render_color(
+            v, m, f, mi, cc, lcc, lp, **kw, bx0=d * n_bx, n_bx=n_bx)[0]
+            for d in range(n)], 1).cpu()
+    for k in ("t", "face_id", "normal"):
+        assert torch.equal(traces["cuda"][k], traces["cpu"][k]), k
+    assert torch.equal(colors["cuda"], colors["cpu"])
+
+
+def test_sharded_step_nccl_world_one(card, tmp_path):
+    """An NCCL group of one rank: sharded_render bitwise equals
+    render_color on the card, and sharded_train_step's loss (rtol 1e-5)
+    and gradients (1e-6 * max|g|) match render_and_grad's."""
+    import torch.distributed as dist
+
+    from ugrt_torch.diff.render_grad import render_and_grad, render_color
+    from ugrt_torch.dist import mesh as dmesh
+
+    scene = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(SMALL, light_grid_mode="windowed")
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    frame = _frame_tensors(scene, cfg, "cuda")
+    target = torch.full((128, 128, 3), 0.1, device="cuda")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = dmesh.make_mesh()
+        assert mesh.device == torch.device("cuda", 0)
+        image, overflow = dmesh.sharded_render(mesh, **kw)(*frame)
+        want, _ = render_color(*frame, **kw)
+        assert torch.equal(image, want) and not bool(overflow)
+        loss, gv, gm, overflow = dmesh.sharded_train_step(mesh, **kw)(
+            *frame, target)
+    finally:
+        dist.destroy_process_group()
+    ref = render_and_grad(*frame[:7], target, **kw)
+    assert not bool(overflow)
+    np.testing.assert_allclose(float(loss), float(ref["loss"]), rtol=1e-5)
+    for got, key in ((gv, "grad_vertices"), (gm, "grad_materials")):
+        w = ref[key]
+        assert float(w.abs().max()) > 0
+        assert float((got - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+def test_build_packets_on_card_equals_cpu(card):
+    """build_packets on the card equals the CPU on 1M cells with hot cells
+    and sentinels (tests/test_packets.py's mix at the flagship size)."""
+    from ugrt_torch.trace import shadow as tshadow
+
+    cfg = RenderConfig()
+    rng = np.random.default_rng(7)
+    n = 1024 * 1024
+    cells = rng.integers(0, cfg.cell_sentinel, n).astype(np.int32)
+    idx = rng.random(n) < 0.6
+    cells[idx] = rng.choice(rng.integers(0, cfg.cell_sentinel, 4), idx.sum())
+    cells[rng.random(n) < 0.05] = cfg.cell_sentinel
+    c = torch.from_numpy(cells)
+    ray_g, work_g = tshadow.build_packets(c.cuda(), cfg)
+    ray_c, work_c = tshadow.build_packets(c, cfg)
+    assert torch.equal(ray_g.cpu(), ray_c)
+    for a, b in zip(work_g, work_c):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert not bool(work_c.overflow)

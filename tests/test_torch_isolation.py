@@ -5,7 +5,8 @@ The guard test imports every module of the port, and every import
 statement of chip_smoke.py, in a fresh interpreter where ``ugrt`` cannot
 be imported.  The copy tests hold each copied object to ugrt's: configs
 field for field, the packed camera vector and the procedural scenes
-bitwise, the OBJ parser on a small file.  Tolerance: none.
+bitwise, the OBJ parser on a small file, the OBJ and material writers
+byte for byte, the vertex animation bitwise.  Tolerance: none.
 """
 
 import ast
@@ -66,6 +67,7 @@ def test_port_imports_nothing_of_ugrt():
         "    ugrt_torch.__path__, 'ugrt_torch.')]",
         "for name in names:",
         "    importlib.import_module(name)",
+        "assert {'ugrt_torch.dist.mesh', 'ugrt_torch.scene.native'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",
@@ -93,7 +95,8 @@ def _write_obj(path):
 @pytest.mark.parametrize("what", [
     "RenderConfig", "QuirkConfig", "pair_capacity", "camcoords",
     "cathedral", "cornell_box", "single_triangle", "obj_parser",
-    "load_scene", "bridge"])
+    "load_scene", "bridge", "aabb", "write_obj", "write_material_file",
+    "rotate_subrange", "read_ppm"])
 def test_copies_equal_ugrt(what, tmp_path):
     if what == "RenderConfig":
         a, b = config_j.RenderConfig(), config_t.RenderConfig()
@@ -151,6 +154,61 @@ def test_copies_equal_ugrt(what, tmp_path):
             b = model_t.load_scene(str(tmp_path / "s.obj"), mat)
             for f in ("vertices", "faces", "mat_index", "materials"):
                 np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    elif what == "aabb":
+        sc = proc_j.cathedral(num_faces_target=2000, seed=1)
+        for x, y in zip(sc.aabb, bridge.scene(sc).aabb):
+            np.testing.assert_array_equal(x, y)
+        assert (sc.aabb[0] < sc.aabb[1]).all()
+    elif what in ("write_obj", "write_material_file"):
+        sc = proc_j.cathedral(num_faces_target=500, seed=2)
+        for mod, name in ((model_j, "j"), (model_t, "t")):
+            (tmp_path / name).mkdir()
+            if what == "write_obj":
+                mod.write_obj(str(tmp_path / name / "s.obj"), sc)
+            else:
+                mod.write_material_file(str(tmp_path / name / "s.obj"),
+                                        sc.materials)
+        for f in ("s.obj", "s.obj.mtl")[:2 if what == "write_obj" else 1]:
+            assert ((tmp_path / "j" / f).read_bytes()
+                    == (tmp_path / "t" / f).read_bytes())
+        if what == "write_obj":       # and it round-trips through the port
+            back = model_t.load_scene(str(tmp_path / "t" / "s.obj"),
+                                      prefer_native=False)
+            for f in ("vertices", "faces", "mat_index", "materials"):
+                np.testing.assert_array_equal(getattr(back, f),
+                                              getattr(sc, f))
+    elif what == "rotate_subrange":
+        import torch
+        rng = np.random.default_rng(4)
+        verts = rng.uniform(0, 25, (40, 3)).astype(np.float32)
+        sub = rng.uniform(0, 25, (11, 3)).astype(np.float32)
+        for rot in (0.0, 0.3, -2.7):
+            want = model_j.rotate_subrange(verts, sub, 7, rot)
+            got = model_t.rotate_subrange(verts, sub, 7, rot)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+            tv = torch.from_numpy(verts.copy())
+            got_t = model_t.rotate_subrange(tv, torch.from_numpy(sub), 7,
+                                            rot)
+            assert got_t is not tv and torch.equal(tv, torch.from_numpy(
+                verts))
+            np.testing.assert_array_equal(got_t.numpy().view(np.int32),
+                                          want.view(np.int32))
+    elif what == "read_ppm":
+        from ugrt.api import io as io_j
+        from ugrt_torch.api import io as io_t
+        img = np.random.default_rng(6).integers(0, 256, (9, 13, 3)).astype(
+            np.uint8)
+        io_j.write_ppm(str(tmp_path / "a.ppm"), img, flip=True)
+        io_t.write_ppm(str(tmp_path / "b.ppm"), img, flip=True)
+        assert ((tmp_path / "a.ppm").read_bytes()
+                == (tmp_path / "b.ppm").read_bytes())
+        for path in ("a.ppm", "b.ppm"):
+            back = io_t.read_ppm(str(tmp_path / path))
+            np.testing.assert_array_equal(back, img[::-1])
+            np.testing.assert_array_equal(
+                back, io_j.read_ppm(str(tmp_path / path)))
     else:
         cfg = dataclasses.replace(
             config_j.RenderConfig(), screen_width=64, grid_x=8,

@@ -16,6 +16,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ugrt.config import RenderConfig
 from ugrt.core import camera as cam
@@ -34,21 +35,28 @@ NS4 = dataclasses.replace(RenderConfig(), screen_width=64, screen_height=64,
                           grid_x=8, grid_y=8, num_slabs=4)
 
 
-def _both(scene, spec, cfg, cap, **kw):
+def _inputs(scene, spec, cfg, cap, **kw):
+    """(camcoords, ugrt's trace_primary arguments, the port's, the port's
+    config): the scene, camera and each package's own grid."""
     cc = cam.camcoords_from_spec(spec, cfg.fovy_deg,
                                  cfg.screen_width / cfg.screen_height)
     v, f, ccj = (jnp.asarray(scene.vertices), jnp.asarray(scene.faces),
                  jnp.asarray(cc))
     gj = gbuild.build_perspective_grid(v, f, ccj, cfg=cfg, capacity=cap,
                                        **kw)
-    rj = tprim.trace_primary(v, f, ccj, gj, cfg)
     sc = bridge.scene_to_torch(scene, "cpu")
     cct = bridge.from_numpy(cc, "cpu")
     cfg_t = bridge.render_config(cfg)
     gt = tbuild.build_perspective_grid(sc["vertices"], sc["faces"], cct,
                                        cfg=cfg_t, capacity=cap, **kw)
-    rt = tprim_t.trace_primary(sc["vertices"], sc["faces"], cct, gt, cfg_t)
-    return cc, gj, {k: np.asarray(v) for k, v in rj.items()}, \
+    return cc, (v, f, ccj, gj), (sc["vertices"], sc["faces"], cct, gt), cfg_t
+
+
+def _both(scene, spec, cfg, cap, **kw):
+    cc, args_j, args_t, cfg_t = _inputs(scene, spec, cfg, cap, **kw)
+    rj = tprim.trace_primary(*args_j, cfg)
+    rt = tprim_t.trace_primary(*args_t, cfg_t)
+    return cc, args_j[3], {k: np.asarray(v) for k, v in rj.items()}, \
         {k: bridge.to_numpy(v) for k, v in rt.items()}
 
 
@@ -122,3 +130,53 @@ def test_trace_primary_chunked(monkeypatch, small_cfg, cornell,
     assert any(int((hi - lo).max()) >= 1 for lo, hi in calls)
     assert (rt["face_id"] >= 0).sum() > rt["face_id"].size // 2
     _assert_equal(rj, rt)
+
+
+# Strips of grid_x / n tile columns, as ugrt.dist.mesh and the port's
+# dist.mesh give each rank (small_cfg; the heavy list; num_slabs=4).
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("case", ["small", "heavy_1024", "num_slabs_4"])
+def test_trace_primary_strips(small_cfg, cornell, generic_camera, case, n):
+    """Side by side the strips are bitwise the whole trace, and each strip
+    is bitwise ugrt's trace_primary(bx0=, n_bx=) on face_id and t (K1's
+    cell keys and K2's footprint gx offset by the strip's first column)."""
+    cfg, spec, kw = small_cfg, generic_camera, {}
+    cap = cfg.pair_capacity(cornell.num_faces)
+    if case == "heavy_1024":
+        cfg = dataclasses.replace(cfg, heavy_capacity=1024)
+        spec, kw, cap = INSIDE_BOX, dict(heavy_threshold=16), cap * 16
+    elif case == "num_slabs_4":
+        cfg = NS4
+    _, args_j, args_t, cfg_t = _inputs(cornell, spec, cfg, cap, **kw)
+    full = tprim_t.trace_primary(*args_t, cfg_t)
+    n_bx = cfg.grid_x // n
+    strips = [tprim_t.trace_primary(*args_t, cfg_t, bx0=d * n_bx, n_bx=n_bx)
+              for d in range(n)]
+    for k in ("face_id", "t", "normal", "ray_dir"):
+        assert torch.equal(torch.cat([s[k] for s in strips], dim=1),
+                           full[k]), k
+    for d in (0, n - 1):
+        rj = tprim.trace_primary(*args_j, cfg, bx0=d * n_bx, n_bx=n_bx)
+        for k in ("face_id", "t"):
+            np.testing.assert_array_equal(strips[d][k].numpy(),
+                                          np.asarray(rj[k]), err_msg=k)
+    if case.startswith("heavy"):
+        assert int(args_t[3].heavy_count) > 0
+    assert (full["face_id"] >= 0).sum() > full["face_id"].numel() // 2
+
+
+def test_trace_primary_refuses_bad_strips(small_cfg, cornell,
+                                          generic_camera):
+    """A strip outside the grid, or of an odd number of tiles (two 64-ray
+    tiles make a 128-ray block), raises ValueError."""
+    cfg = dataclasses.replace(small_cfg, screen_height=72, grid_y=9)
+    _, _, args_t, cfg_t = _inputs(cornell, generic_camera, small_cfg,
+                                  small_cfg.pair_capacity(cornell.num_faces))
+    for bx0, n_bx in ((15, 2), (-1, 2), (0, 0)):
+        with pytest.raises(ValueError, match="strip"):
+            tprim_t.trace_primary(*args_t, cfg_t, bx0=bx0, n_bx=n_bx)
+    _, _, args_t, cfg_t = _inputs(cornell, generic_camera, cfg,
+                                  cfg.pair_capacity(cornell.num_faces))
+    with pytest.raises(ValueError, match="even"):
+        tprim_t.trace_primary(*args_t, cfg_t, bx0=3, n_bx=1)
+    tprim_t.trace_primary(*args_t, cfg_t, bx0=3, n_bx=2)

@@ -1,0 +1,115 @@
+"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py.
+
+    python tests/torch_dist_worker.py DIR RANK WORLD_SIZE
+
+Joins the group through a FileStore in DIR (no TCP port), reads the
+tasks from DIR/spec.json and their arrays from DIR/inputs.npz, runs them
+through ``ugrt_torch.dist.mesh`` and ``ugrt_torch.api.train`` on CPU
+tensors, and writes its results to DIR/rank<RANK>.npz.  It imports only
+torch, numpy and ugrt_torch (``ugrt_torch`` must be on PYTHONPATH), never
+tests/conftest.py, which imports JAX, and holds torch at one thread.
+"""
+
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ugrt_torch import config
+from ugrt_torch.api import checkpoint
+from ugrt_torch.api import train as tmod
+from ugrt_torch.core.host_camera import CameraSpec
+from ugrt_torch.dist import mesh as dmesh
+from ugrt_torch.scene.model import Scene
+
+SCENE_KEYS = ("vertices", "materials", "faces", "mat_index")
+FRAME_KEYS = (*SCENE_KEYS, "camcoords", "light_camcoords", "light_position")
+
+
+def render_config(fields):
+    return config.RenderConfig(**{**fields, "quirks": config.QuirkConfig(
+        **fields["quirks"])})
+
+
+def run_task(task, arrays, mesh, out):
+    cfg = render_config(task["cfg"])
+    if task["name"] == "train":
+        train_runs(task, arrays, cfg, out)
+        return
+    a = {k: torch.from_numpy(arrays[f"{task['inputs']}/{k}"])
+         for k in (*FRAME_KEYS, "target") if f"{task['inputs']}/{k}" in arrays}
+    kw = dict(cfg=cfg, capacity=task["capacity"], num_lights=1,
+              use_spot=task["use_spot"])
+    key = task["key"]
+    if task["name"] == "render":
+        image, overflow = dmesh.sharded_render(mesh, **kw)(
+            *(a[k] for k in FRAME_KEYS))
+        out[f"{key}/image"] = image.numpy()
+        out[f"{key}/overflow"] = overflow.numpy()
+    else:
+        loss, gv, gm, overflow = dmesh.sharded_train_step(mesh, **kw)(
+            *(a[k] for k in FRAME_KEYS), a["target"])
+        for name, x in (("loss", loss), ("grad_vertices", gv),
+                        ("grad_materials", gm), ("overflow", overflow)):
+            out[f"{key}/{name}"] = x.numpy()
+
+
+def train_runs(task, arrays, cfg, out):
+    """Two train(use_mesh=True) runs on one checkpoint directory (the
+    second resumes the first); counts this rank's checkpoint writes."""
+    p = task["inputs"]
+    scene = Scene(**{k: arrays[f"{p}/{k}"] for k in SCENE_KEYS})
+    saves = []
+    save = checkpoint.save_checkpoint
+
+    def counted(*args, **kwargs):
+        saves.append(args[2] if len(args) > 2 else kwargs["step"])
+        return save(*args, **kwargs)
+
+    checkpoint.save_checkpoint = counted
+    try:
+        for i, steps in enumerate(task["steps"]):
+            tcfg = tmod.TrainConfig(**{**task["train"], "steps": steps})
+            verts, mats, log = tmod.train(
+                scene, [CameraSpec(**task["camera"])],
+                CameraSpec(**task["light"]), task["light"]["eye"],
+                [arrays[f"{p}/target"]], cfg, tcfg, verbose=False,
+                device="cpu")
+            out[f"{task['key']}/log{i}"] = np.asarray(log)
+    finally:
+        checkpoint.save_checkpoint = save
+    out[f"{task['key']}/vertices"] = verts.numpy()
+    out[f"{task['key']}/materials"] = mats.numpy()
+    out[f"{task['key']}/saves"] = np.asarray(saves, dtype=np.int64)
+    out[f"{task['key']}/latest"] = np.asarray(
+        checkpoint.latest_step(task["train"]["checkpoint_dir"]))
+
+
+def main(argv):
+    d, rank, world = argv[0], int(argv[1]), int(argv[2])
+    torch.set_num_threads(1)
+    with open(os.path.join(d, "spec.json")) as fh:
+        spec = json.load(fh)
+    store = dist.FileStore(os.path.join(d, "store"), world)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+    try:
+        mesh = dmesh.make_mesh(device="cpu")
+        assert (mesh.rank, mesh.world_size) == (rank, world)
+        with np.load(os.path.join(d, "inputs.npz")) as f:
+            arrays = dict(f)
+        out = {}
+        for task in spec["tasks"]:
+            run_task(task, arrays, mesh, out)
+        np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -5,8 +5,10 @@ images with Adam, one frame per step (``step % len(camera_specs)``),
 through the differentiable step ``diff.render_grad.render_and_grad``
 (K1-K3 on the card), with checkpoints every ``checkpoint_every`` steps
 and resume from the latest one (parameters only, a fresh optimizer
-state, as ugrt does).  ugrt's ``use_mesh`` (sharding over a device mesh)
-is not ported yet.
+state, as ugrt does).  ``use_mesh`` shards each step's image over the
+ranks of the default process group (``dist.mesh.sharded_train_step``):
+every rank calls ``train()``, as under ``torchrun``, renders its strip
+of tile columns and takes the gradients summed over the group.
 """
 
 from __future__ import annotations
@@ -16,12 +18,14 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ugrt_torch import bridge
 from ugrt_torch.api import checkpoint as ckpt
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.host_camera import CameraSpec
 from ugrt_torch.diff.render_grad import render_and_grad
+from ugrt_torch.dist import mesh as dmesh
 
 
 @dataclasses.dataclass
@@ -32,7 +36,7 @@ class TrainConfig:
     optimize_materials: bool = True
     checkpoint_dir: str | None = None
     checkpoint_every: int = 50
-    use_mesh: bool = False  # shard over all available devices (not ported)
+    use_mesh: bool = False  # shard over the default process group
 
 
 def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
@@ -54,11 +58,23 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
     (vertices, materials) tensors on ``device`` and the list of losses.
     Raises if a step's grid capacities overflow (its gradients would be
     corrupt).
+
+    With ``tcfg.use_mesh`` the run is SPMD over the initialized default
+    process group: every rank calls ``train()`` with the same arguments,
+    renders its strip of each target (``device`` "cuda" means the card
+    ``cuda:<LOCAL_RANK>``), and every rank returns the same losses and
+    parameters.  Only rank 0 writes checkpoints; every rank resumes from
+    the latest.
     """
+    mesh = None
     if tcfg.use_mesh:
-        raise NotImplementedError(
-            "use_mesh: sharded training is not in ugrt_torch yet (ROADMAP "
-            "Queue 1: multi-GPU, dist/mesh.py)")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "train(use_mesh=True) runs on every rank of an initialized "
+                "torch.distributed default process group (e.g. under "
+                "torchrun, after init_process_group); none is initialized")
+        mesh = dmesh.make_mesh(device=device)
+        device = mesh.device
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: device 'cuda' requested but CUDA is not "
@@ -77,6 +93,10 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
 
     start_step = 0
     if tcfg.checkpoint_dir:
+        if mesh is not None:
+            # Rank 0 wrote the checkpoints of an earlier run: wait for it.
+            dist.barrier(group=mesh.group, device_ids=(
+                [device.index] if device.type == "cuda" else None))
         latest = ckpt.latest_step(tcfg.checkpoint_dir)
         if latest is not None:
             state = ckpt.load_checkpoint(tcfg.checkpoint_dir, latest)
@@ -88,14 +108,26 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
             if verbose:
                 print(f"resumed from step {latest}")
 
+    kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
+    if mesh is None:
+        def grads_for(frame):
+            return render_and_grad(
+                vertices, materials, t["faces"], t["mat_index"], ccs[frame],
+                lcc, lp, targets[frame], **kw)
+    else:
+        sharded_step = dmesh.sharded_train_step(mesh, **kw)
+
+        def grads_for(frame):
+            loss, gv, gm, overflow = sharded_step(
+                vertices, materials, t["faces"], t["mat_index"], ccs[frame],
+                lcc, lp, targets[frame])
+            return dict(loss=loss, grad_vertices=gv, grad_materials=gm,
+                        overflow=overflow)
+
     opt = make_optimizer([vertices, materials], tcfg.learning_rate)
     log = []
     for step in range(start_step, tcfg.steps):
-        frame = step % len(camera_specs)
-        out = render_and_grad(
-            vertices, materials, t["faces"], t["mat_index"], ccs[frame], lcc,
-            lp, targets[frame], cfg=cfg, capacity=cap, num_lights=1,
-            use_spot=True)
+        out = grads_for(step % len(camera_specs))
         vertices.grad = (out["grad_vertices"] if tcfg.optimize_vertices
                          else torch.zeros_like(vertices))
         materials.grad = (out["grad_materials"] if tcfg.optimize_materials
@@ -114,7 +146,8 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
         log.append(loss_v)
         if verbose and (step % 10 == 0 or step == tcfg.steps - 1):
             print(f"step {step}: loss {loss_v:.6f}")
-        if tcfg.checkpoint_dir and (step + 1) % tcfg.checkpoint_every == 0:
+        if (tcfg.checkpoint_dir and (step + 1) % tcfg.checkpoint_every == 0
+                and (mesh is None or mesh.rank == 0)):
             ckpt.save_checkpoint(
                 tcfg.checkpoint_dir,
                 {"params": {"vertices": vertices, "materials": materials}},

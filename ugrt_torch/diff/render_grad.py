@@ -28,19 +28,29 @@ from ugrt_torch.trace import shadow as tshadow
 
 def render_color(vertices, materials, faces, mat_index, camcoords,
                  light_camcoords, light_position, *, cfg: RenderConfig,
-                 capacity: int, num_lights: int, use_spot: bool):
+                 capacity: int, num_lights: int, use_spot: bool,
+                 bx0: int = 0, n_bx: int | None = None, group=None):
     """(f32 RGB [H, W, 3], overflow 0-d bool tensor), differentiable in
     ``vertices`` and ``materials``; equal to the u8 frame up to
     quantization.  ``overflow`` is true when a pair or heavy-list
     capacity clipped real geometry: the image and its gradients are then
-    wrong, and callers must surface it."""
+    wrong, and callers must surface it.
+
+    ``bx0`` / ``n_bx``: render only tile columns [bx0, bx0 + n_bx) (the
+    output is [H, n_bx * 8, 3]; default the whole image), as one rank of
+    ``dist.mesh`` does.  ``group``: the ranks whose strips make the
+    image, over which each light's window or extents are reduced
+    (``shadow_pass``).  A strip rendered with no group bins its shadow
+    rays by its own rays' window; in ``reference`` mode, where no window
+    depends on the hit points, it equals those columns of the image."""
     vsg = vertices.detach()
     grid = gbuild.build_perspective_grid(vsg, faces, camcoords, cfg=cfg,
                                          capacity=capacity)
-    raw = tprimary.trace_primary(vsg, faces, camcoords, grid, cfg)
+    raw = tprimary.trace_primary(vsg, faces, camcoords, grid, cfg, bx0=bx0,
+                                 n_bx=n_bx)
     shadowed, light_overflow, shade_cc = tshadow.shadow_pass(
         vsg, faces, raw, camcoords, light_camcoords, cfg, capacity=capacity,
-        num_lights=num_lights)
+        num_lights=num_lights, group=group)
 
     refined = trefine.refine_primary(
         vertices, faces, camcoords, raw, cfg,

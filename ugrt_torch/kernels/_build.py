@@ -175,12 +175,16 @@ def library(lib: str = "kernels") -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call entry point ``name`` on the current CUDA stream; tensors pass
-    as their data pointers.  Raises if the launch reports an error."""
+    """Call entry point ``name`` on the card that holds its first tensor
+    argument, on that card's current stream; tensors pass as their data
+    pointers.  Raises if the launch reports an error."""
     dll = library(_LIBRARY_OF[name])
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    err = getattr(dll, name)(*cargs, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = getattr(dll, name)(
+            *cargs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = dll.ugrt_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

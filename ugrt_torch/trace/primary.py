@@ -83,24 +83,41 @@ def untile(img_tiled, cfg: RenderConfig, tiles_x: int, tiles_y: int):
 
 
 def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
-                  cfg: RenderConfig):
-    """Full primary trace.  Returns per-pixel t [H, W], face_id [H, W]
-    int32, normal [H, W, 3] and ray_dir [H, W, 3]."""
+                  cfg: RenderConfig, *, bx0: int = 0, n_bx: int | None = None):
+    """Full primary trace.  Returns per-pixel t [H, w], face_id [H, w]
+    int32, normal [H, w, 3] and ray_dir [H, w, 3].
+
+    ``bx0`` / ``n_bx`` select a strip of tile columns (ugrt/trace/
+    primary.py:203-233): only tiles bx in [bx0, bx0 + n_bx) are traced,
+    and the outputs cover image columns [bx0 * 8, (bx0 + n_bx) * 8).  The
+    grid is the whole image's.  Default: the whole image (w = W).  Every
+    ray's result is its own, so strips side by side equal the whole
+    image bit for bit (``dist.mesh`` renders one strip per rank)."""
     H, W = cfg.screen_height, cfg.screen_width
     if (W // cfg.tile_x != cfg.grid_x or H // cfg.tile_y != cfg.grid_y
             or cfg.tile_x * cfg.tile_y != 64):
         raise ValueError("screen tiles must be 8x8 and match the grid "
                          "(main.cu.h:10-28)")
-    tiles_x, tiles_y = cfg.grid_x, cfg.grid_y
+    tiles_y = cfg.grid_y
+    if n_bx is None:
+        n_bx = cfg.grid_x
+    if not (0 <= bx0 and 1 <= n_bx and bx0 + n_bx <= cfg.grid_x):
+        raise ValueError(f"strip bx0={bx0}, n_bx={n_bx} is not inside the "
+                         f"{cfg.grid_x} tile columns")
     NS = cfg.num_slabs
-    num_tiles = tiles_x * tiles_y
+    num_tiles = n_bx * tiles_y
     if num_tiles % 2:
-        raise ValueError("the sweeps pack two 64-ray tiles per 128-ray block")
+        raise ValueError("the sweeps pack two 64-ray tiles per 128-ray "
+                         "block: n_bx * grid_y must be even")
     nb = num_tiles // 2
     dev = camcoords.device
+    # The strip's first cell: cells are x-major (bx * grid_y + by) with
+    # NS slabs each.  Keys travel as f32, exact below 2^24.
+    c0 = bx0 * tiles_y * NS
 
     eye = camcoords[0:3]
-    dirs = primary_ray_dirs(camcoords, W, H)
+    dirs = primary_ray_dirs(camcoords, W, H)[
+        :, bx0 * cfg.tile_x:(bx0 + n_bx) * cfg.tile_x]
     rays_t = tile_rays(dirs, cfg)                            # [T, 64, 3]
     tri_w = tw.pack_tri_windows(vertices, faces, grid, eye)
 
@@ -109,17 +126,17 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
     tiles = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     rows = torch.zeros((num_tiles, 64, 8), dtype=torch.float32, device=dev)
     rows[:, :, 0:3] = rays_t
-    rows[:, :, 4] = (tiles // tiles_y).float()[:, None]
+    rows[:, :, 4] = (bx0 + tiles // tiles_y).float()[:, None]
     rows[:, :, 5] = (tiles % tiles_y).float()[:, None]
     rows = rows.reshape(nb, 128, 8)
     blocks = torch.arange(nb, dtype=torch.int64, device=dev)
 
     t_slabs, f_slabs = [], []
     for s in range(NS):
-        rows[:, :, 3] = (tiles * NS + s).float().reshape(nb, 2, 1).expand(
-            nb, 2, 64).reshape(nb, 128)
-        k1 = 2 * blocks * NS + s
-        k2 = (2 * blocks + 1) * NS + s
+        rows[:, :, 3] = (c0 + tiles * NS + s).float().reshape(
+            nb, 2, 1).expand(nb, 2, 64).reshape(nb, 128)
+        k1 = c0 + 2 * blocks * NS + s
+        k2 = c0 + (2 * blocks + 1) * NS + s
         lo = grid.cell_offset[k1]
         hi = grid.cell_offset[k2] + grid.cell_count[k2]
         w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
@@ -173,7 +190,7 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
     nrm = torch.where(ok[..., None], nrm, -1.0)
     t_out = torch.where(ok, oldt, -1.0)
 
-    return dict(t=untile(t_out, cfg, tiles_x, tiles_y),
-                face_id=untile(face_id, cfg, tiles_x, tiles_y),
-                normal=untile(nrm, cfg, tiles_x, tiles_y),
+    return dict(t=untile(t_out, cfg, n_bx, tiles_y),
+                face_id=untile(face_id, cfg, n_bx, tiles_y),
+                normal=untile(nrm, cfg, n_bx, tiles_y),
                 ray_dir=dirs)

@@ -12,18 +12,23 @@ back through the sort permutation.
 
 Rays whose direction leaves the light grid get the sentinel cell and
 test no triangle (ugrt's defined divergence from the reference's
-out-of-bounds read, SURVEY.md §3.5).  ugrt's XLA branch and its
-``build_packets`` (the reference's 64-ray packets) are not on this path.
+out-of-bounds read, SURVEY.md §3.5).  ugrt's XLA branch has no
+counterpart.  ``build_packets`` carves the reference's cell-pure 64-ray
+packets (its DecisionData reorder); it is not on the frame path, which
+sweeps fixed 128-ray blocks of the sorted stream instead.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize, sqrt
+from ugrt_torch.dist import all_reduce
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.grid.build import DeviceGrid
@@ -44,6 +49,70 @@ HCHUNK = 4
 # floor, as ugrt.trace.shadow defines them.
 WINDOW_MARGIN = 2e-3
 WINDOW_MIN_WIDTH = 1e-4
+
+
+class ShadowWork(NamedTuple):
+    """The reference's shadow-ray packets (ugrt/trace/shadow.py:66-70)."""
+
+    packet_pos: torch.Tensor    # [Pcap] int32 start in sorted order (N pad)
+    packet_count: torch.Tensor  # [Pcap] int32 rays in packet (<= 64, 0 pad)
+    packet_cell: torch.Tensor   # [Pcap] int32 light cell (sentinel pad)
+    overflow: torch.Tensor      # 0-d bool
+
+
+def packet_capacity(cfg: RenderConfig, num_rays: int) -> int:
+    """Packets <= light cells + N/64: every cell adds at most one partial
+    packet on top of the full 64-ray ones."""
+    return cfg.cell_sentinel + num_rays // cfg.max_rays_per_packet + 1
+
+
+def build_packets(cells, cfg: RenderConfig):
+    """Sort rays by light cell and carve cell-pure packets of at most
+    ``max_rays_per_packet`` rays: the reference's DecisionData 6-step
+    reorder (decision_data.h:171-271, ugrt/trace/shadow.py:90-144), a
+    stable sort, head flags, the segmented rank (cummax), rank % 64 == 1
+    packet starts, and compaction by sorting the marked positions.
+    Not on the frame path (see the module docstring).
+
+    cells: [N] int32 light-cell ids (cfg.cell_sentinel = out of grid).
+    Returns (sorted_ray [N] int32 original ray index, ShadowWork of
+    [pcap] int32 arrays, ``pcap = packet_capacity(cfg, N)``).
+    """
+    n = cells.shape[0]
+    dev = cells.device
+    sorted_cells, sorted_ray = torch.sort(cells, stable=True)
+
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = sorted_cells[1:] != sorted_cells[:-1]
+    seg_start = torch.cummax(torch.where(head, pos, -1), dim=0).values
+    rank = pos - seg_start + 1   # 1-based in-segment rank (segmented scan)
+
+    mrp = cfg.max_rays_per_packet
+    start = (rank % mrp == 1) if mrp > 1 else torch.ones_like(head)
+
+    pcap = packet_capacity(cfg, n)
+    # Compact the start positions: sort the marked ones ascending, padded
+    # with n to pcap + 1 so the last packet's next start is n.
+    marked = torch.sort(torch.where(start, pos, n)).values
+    padded = torch.full((max(n, pcap + 1),), n, dtype=torch.int64,
+                        device=dev)
+    padded[:n] = marked
+    packet_pos = padded[:pcap]
+    overflow = start.sum() > pcap
+
+    # Packet extent = distance to the next start (a new segment always
+    # starts a packet, so this never crosses a cell boundary).
+    packet_count = torch.clamp(padded[1:pcap + 1] - packet_pos, 0, mrp)
+    sentinel = cfg.cell_sentinel
+    cell_at = sorted_cells[torch.clamp(packet_pos, 0, max(n - 1, 0))]
+    packet_cell = torch.where((packet_pos < n) & (cell_at < sentinel),
+                              cell_at, sentinel)
+    packet_count = torch.where(packet_cell < sentinel, packet_count, 0)
+    i32 = torch.int32
+    return sorted_ray.to(i32), ShadowWork(
+        packet_pos.to(i32), packet_count.to(i32), packet_cell.to(i32),
+        overflow)
 
 
 def _f32(x, device):
@@ -193,10 +262,17 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
 
 
 def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
-                cfg: RenderConfig, *, capacity: int, num_lights: int):
+                cfg: RenderConfig, *, capacity: int, num_lights: int,
+                group=None):
     """Every light's shadow flags, OR-ed, as the reference's frame loop
     runs them (main.cu:160-201): per light, the light window or extents
     of ``cfg.light_grid_mode``, the spherical grid, then ``trace_shadow``.
+
+    ``group``: the process group whose ranks' ``primary`` rays together
+    make the image (``dist.mesh``, one strip per rank).  Each light's
+    extents (MAX) or raw window (MIN / MAX, then the margin) are reduced
+    over it, so every rank builds the whole image's light grid; each
+    ray's flag is its own (ugrt mesh.py:58-60).  None: no collective.
 
     Returns (shadowed [H, W] int32, overflow (0-d bool: a light grid's
     pair or heavy-list capacity was exceeded), the camcoords that shade
@@ -212,13 +288,20 @@ def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
     # "extent" clamps geometry into edge cells and needs headroom (ugrt
     # renderer.py:70-75).
     lcap = 2 * capacity if mode == "extent" else capacity
+    MIN, MAX = dist.ReduceOp.MIN, dist.ReduceOp.MAX
     for li in range(num_lights):
         lcc = light_camcoords[li]
         x_max = y_max = window = None
         if mode == "extent":
-            x_max, y_max = light_extents(primary, eye, lcc, cfg)
+            x_max, y_max = (all_reduce(a, MAX, group) for a in
+                            light_extents(primary, eye, lcc, cfg))
         elif mode == "windowed":
-            window = light_window(primary, eye, lcc, cfg)
+            # The margin goes on after the reduction, so the window is
+            # the one of all the image's rays.
+            x0, x1, y0, y1 = light_window(primary, eye, lcc, cfg, margin=0.0)
+            window = apply_window_margin(
+                all_reduce(x0, MIN, group), all_reduce(x1, MAX, group),
+                all_reduce(y0, MIN, group), all_reduce(y1, MAX, group))
         lgrid = gbuild.build_spherical_grid(
             vertices, faces, lcc, cfg=cfg, capacity=lcap, x_max=x_max,
             y_max=y_max, window=window)
