@@ -34,7 +34,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
     reference light grid, 4 frames each; every kernel must have launched
     and no grid capacity may overflow.  Prints per-frame ms, then the
     device-busy share and top kernels of one more frame per mode under
-    torch.profiler.
+    torch.profiler.  Renderer.render, render_and_grad and train()'s step
+    replay captured CUDA graphs (core.program) from here on: a replay
+    credits each kernel wrapper with the launches its capture recorded.
  6. The differentiable step render_and_grad on bench.py's flagship
     workload (bench.py:142-211: 1024^2, windowed, spot, one light, zero
     target): one warm-up step, then 4 steps with CUDA-event and host ms,
@@ -84,6 +86,27 @@ Phases (each prints a line; any failure raises and exits non-zero):
     both PPM writers (bytes equal), ms of each.  (d) build_packets on the
     flagship windowed frame's light cells on the card, equal to the CPU
     and meeting tests/test_packets.py's packet invariants.
+11. One dispatch per frame and per step (core.program), at the
+    flagship.  (a) One eager frame per mode (windowed, reference,
+    extent; Lambert and spot) and one eager step under
+    torch.cuda.set_sync_debug_mode("error"): no host sync.  (b) The
+    programs dropped, then each key's warm-up + capture seconds (frame
+    Lambert, frame spot, step; then the other modes' frames).  (c)
+    Replayed frames bitwise equal to eager render_frame (image, color,
+    shadowed, primary t and face_id, overflow) in the three modes, Lambert
+    and spot, two cameras in turn.  (d) rotate_subrange of the last eighth
+    of the vertices through Renderer.update_vertices: the next replay
+    bitwise the eager frame of the new vertices.  (e) The step's replay
+    bitwise the eager step (loss, color, both gradients, overflow), two
+    targets in turn.  (f) Eager, graphed, graphed, eager: ms (CUDA
+    events, host) of frames 2-4 in windowed and reference mode, of
+    steps 1-4, and of train() per step (steps 1-4); K1-K3's launches
+    credited to the graphed runs.  (g) One replayed frame and one step
+    under torch.profiler: busy share, kernel count, top kernels; K1-K3
+    must appear by name.  (h) Peak device memory of eager and graphed
+    frames and steps, and what a capture holds.  (i) A Program whose
+    body calls .item() must raise at capture, and a replay after it
+    still equal eager.
 Then one JSON line with the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -122,6 +145,9 @@ CAMERA = dict(eye=(3.0, 15.0, 5.0), look_at=(13.0, 13.0, 3.0),
               up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
 LIGHT = dict(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
              up=(0.0, 1.0, 0.0), near=0.1, far=100.0)
+# A second flagship camera, turned a little (phase 11's replays
+# alternate the two).
+CAMERA_2 = dict(CAMERA, look_at=(13.0, 14.0, 3.2))
 CPU_PIXEL_BOUND = 1e-3         # README.md:108-113: knife-edge rays
 FRAMES = 4                     # per light mode; frame 1 is the warmup
 STEPS = 4                      # timed fwd+bwd steps after one warm-up
@@ -473,7 +499,8 @@ def kernel_phase(scene, flagship, camera, light):
 def profile_once(label, fn, top_n=8):
     """torch.profiler over one call of fn(): prints its host ms, the
     device-busy share (sum of CUDA kernel time / host ms), the kernel
-    launches and the top ops by device time."""
+    launches and the top ops by device time.  Returns the names of the
+    CUDA kernels that ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -493,6 +520,7 @@ def profile_once(label, fn, top_n=8):
         f"{sum(e.count for e in kernels)} kernel launches; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
                     f" x{e.count}" for e in top))
+    return [e.key for e in kernels]
 
 
 def profile_frames(scene, flagship, camera, light, lp):
@@ -875,6 +903,37 @@ def reflect_phase(scene, flagship, camera, light, kernels):
     return launches
 
 
+def timed_train(step_fn, *args, **kwargs):
+    """train(*args, **kwargs) on the card with ``step_fn`` as its step
+    (in place of render_and_grad): (losses, CUDA-event ms per step, host
+    ms per step), each step timed from its start to the next one's."""
+    import torch
+
+    from ugrt_torch.api import train as tmod
+
+    marks = []                     # (CUDA event, host s) at each step start
+
+    def timed(*a, **k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+        return step_fn(*a, **k)
+
+    saved = tmod.render_and_grad
+    tmod.render_and_grad = timed
+    try:
+        _, _, log = tmod.train(*args, verbose=False, device="cuda", **kwargs)
+    finally:
+        tmod.render_and_grad = saved
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    stops = marks[1:] + [(end, time.perf_counter())]
+    ev = [a.elapsed_time(b) for (a, _), (b, _) in zip(marks, stops)]
+    host = [(hb - ha) * 1e3 for (_, ha), (_, hb) in zip(marks, stops)]
+    return log, ev, host
+
+
 def train_phase(scene, flagship, camera, light, kernels):
     """Phase 9: the training loop.  Returns K1-K3's launches over the
     flagship run and its resume."""
@@ -883,7 +942,6 @@ def train_phase(scene, flagship, camera, light, kernels):
     import numpy as np
     import torch
 
-    from ugrt_torch import bridge
     from ugrt_torch.api import checkpoint
     from ugrt_torch.api import train as tmod
     from ugrt_torch.core.host_camera import CameraSpec
@@ -892,40 +950,20 @@ def train_phase(scene, flagship, camera, light, kernels):
 
     cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
     target = np.zeros((cfg.screen_height, cfg.screen_width, 3), np.float32)
-    marks = []                     # (CUDA event, host s) at each step start
-    step_fn = tmod.render_and_grad
-
-    def timed(*a, **k):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((ev, time.perf_counter()))
-        return step_fn(*a, **k)
 
     def run(tcfg):
-        marks.clear()
-        _, _, log = tmod.train(scene, [camera], light, light.eye, [target],
-                               cfg, tcfg, verbose=False, device="cuda")
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        torch.cuda.synchronize()
-        stops = marks[1:] + [(end, time.perf_counter())]
-        ev = [a.elapsed_time(b) for (a, _), (b, _) in zip(marks, stops)]
-        host = [(hb - ha) * 1e3 for (_, ha), (_, hb) in zip(marks, stops)]
-        return log, ev, host
+        return timed_train(tmod.render_and_grad, scene, [camera], light,
+                           light.eye, [target], cfg, tcfg)
 
     for k in kernels.values():
         k.launches = 0
     with tempfile.TemporaryDirectory() as d:
-        tmod.render_and_grad = timed
-        try:
-            first = run(tmod.TrainConfig(steps=6, checkpoint_dir=d,
-                                         checkpoint_every=3))
-            # The resume checkpoints every 2 steps, so its last step (7)
-            # leaves one: latest_step then shows where it ended.
-            second = run(tmod.TrainConfig(steps=8, checkpoint_dir=d,
-                                          checkpoint_every=2))
-        finally:
-            tmod.render_and_grad = step_fn
+        first = run(tmod.TrainConfig(steps=6, checkpoint_dir=d,
+                                     checkpoint_every=3))
+        # The resume checkpoints every 2 steps, so its last step (7)
+        # leaves one: latest_step then shows where it ended.
+        second = run(tmod.TrainConfig(steps=8, checkpoint_dir=d,
+                                      checkpoint_every=2))
         latest = checkpoint.latest_step(d)
     launches = {name: k.launches for name, k in kernels.items()}
     for name, (log, ev, host) in (("steps 0-5", first),
@@ -1257,6 +1295,309 @@ def packet_phase(scene, flagship, camera, light):
         f"invariants {ok}; ms card {ms['cuda']:.3f}, CPU {ms['cpu']:.3f}")
     if not (equal and all(ok.values())):
         fail("phase 10d: build_packets disagrees or breaks an invariant")
+
+
+def bitwise_diffs(got, want):
+    """{key: elements whose bits differ} of two dicts of tensors."""
+    import torch
+
+    out = {}
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            out[key] = -1
+            continue
+        if w.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        out[key] = int((g != w).sum())
+    return out
+
+
+def frame_leaves(out):
+    """The frame's results that phase 11 holds bitwise."""
+    return dict(image=out["image"], color=out["color"],
+                shadowed=out["shadowed"], t=out["primary"]["t"],
+                face_id=out["primary"]["face_id"], overflow=out["overflow"])
+
+
+def in_turns(fn_eager, fn_graphed, counted, warm=1, timed=3):
+    """Eager, graphed, graphed, eager: per block ``warm`` untimed calls,
+    then ``timed`` calls, each timed alone (CUDA events and host clock,
+    synchronised).  Returns ({name: [CUDA-event ms]}, {name: [host
+    ms]}, K1-K3's launches over the graphed blocks, each block's read
+    from counts set to 0 just before it)."""
+    import torch
+
+    ev = {"eager": [], "graphed": []}
+    host = {"eager": [], "graphed": []}
+    credited = {name: 0 for name in counted}
+    for name, fn in (("eager", fn_eager), ("graphed", fn_graphed),
+                     ("graphed", fn_graphed), ("eager", fn_eager)):
+        for k in counted.values():
+            k.launches = 0
+        for _ in range(warm):
+            fn()
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - h0) * 1e3)
+            ev[name].append(start.elapsed_time(end))
+        if name == "graphed":
+            for n, k in counted.items():
+                credited[n] += k.launches
+    return ev, host, credited
+
+
+def memory_of(fn):
+    """(result, seconds, peak MB, held MB) of one call of fn() on the
+    card: the peak of max_memory_allocated above what was allocated
+    before, and the growth of memory_reserved (what the caching
+    allocator and a captured graph's pool keep afterwards)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, seconds, (torch.cuda.max_memory_allocated() - base) / 2**20,
+            (torch.cuda.memory_reserved() - reserved) / 2**20)
+
+
+# K1-K3's CUDA kernels by name, as torch.profiler lists them.
+SWEEP_KERNELS = {"primary_sweep": r"(?<!heavy_)primary_sweep_kernel",
+                 "heavy_primary_sweep": r"heavy_primary_sweep_kernel",
+                 "shadow_sweep": r"shadow_sweep_kernel"}
+
+
+def program_phase(scene, flagship, camera, light, kernels):
+    """Phase 11: one dispatch per frame and per step (core.program).
+    Returns K1-K3's launches credited to the graphed runs of (f)."""
+    import numpy as np
+    import torch
+
+    from ugrt_torch.api.renderer import (Renderer, render_frame,
+                                         render_frame_device)
+    from ugrt_torch.api.train import TrainConfig
+    from ugrt_torch.core.host_camera import CameraSpec
+    from ugrt_torch.core.program import Program
+    from ugrt_torch.diff.render_grad import render_and_grad
+    from ugrt_torch.scene import model
+
+    modes = ("windowed", "reference", "extent")
+    cfgs = {m: dataclasses.replace(flagship, light_grid_mode=m)
+            for m in modes}
+    cap = flagship.pair_capacity(scene.num_faces)
+
+    def frame_kw(mode, use_spot):
+        return dict(cfg=cfgs[mode], capacity=cap, num_lights=1,
+                    use_spot=use_spot)
+
+    cams = (camera, CameraSpec(**CAMERA_2))
+    frames = [frame_inputs(scene, flagship, c, light, "cuda") for c in cams]
+    step_kw = dict(frame_kw("windowed", True))
+    step_args = step_inputs(scene, cfgs["windowed"], camera, light, "cuda")
+    step_keys = ("loss", "color", "grad_vertices", "grad_materials",
+                 "overflow")
+
+    # (a) The bodies, eagerly, with any host sync an error.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for mode in modes:
+            for use_spot in (False, True):
+                render_frame(*frames[0], **frame_kw(mode, use_spot))
+        render_and_grad.fn(**step_args, **step_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("phase 11a: eager frames (3 modes x Lambert, spot) and the eager "
+        "step ran under torch.cuda.set_sync_debug_mode('error'): no host "
+        "sync")
+
+    # (b) Capture cost and (h) memory, from nothing recorded.
+    render_frame_device.clear()
+    render_and_grad.clear()
+    mem = {}
+    _, _, mem["eager frame"], _ = memory_of(
+        lambda: render_frame(*frames[0], **frame_kw("windowed", True)))
+    _, _, mem["eager step"], _ = memory_of(
+        lambda: render_and_grad.fn(**step_args, **step_kw))
+    for label, prog, call in (
+            ("frame lambert", render_frame_device,
+             lambda: render_frame_device(*frames[0],
+                                         **frame_kw("windowed", False))),
+            ("frame spot", render_frame_device,
+             lambda: render_frame_device(*frames[0],
+                                         **frame_kw("windowed", True))),
+            ("step", render_and_grad,
+             lambda: render_and_grad(**step_args, **step_kw))):
+        _, first_s, peak, held = memory_of(call)
+        mem[f"{label} capture"] = peak
+        mem[f"{label} held"] = held
+        _, _, mem[f"{label} replay"], _ = memory_of(call)
+        say(f"phase 11b: {label} (windowed): warm-up + capture "
+            f"{prog.capture_seconds()[-1]:.3f} s, first call "
+            f"{first_s:.3f} s in all")
+    say("phase 11h: device memory MB (peak max_memory_allocated above the "
+        "start of the call; 'held' = memory_reserved kept after the "
+        "capture): " + ", ".join(f"{k} {v:.1f}" for k, v in mem.items()))
+
+    # (c) Replayed frames against eager, two cameras in turn per key.
+    for mode in modes:
+        for use_spot in (False, True):
+            kw = frame_kw(mode, use_spot)
+            new = render_frame_device.cache_size()
+            images = []
+            for ci, args in enumerate(frames):
+                got = render_frame_device(*args, **kw)
+                want = render_frame(*args, **kw)
+                diff = bitwise_diffs(frame_leaves(got), frame_leaves(want))
+                hit = float((want["primary"]["face_id"] >= 0).float().mean())
+                say(f"phase 11c: {mode} {'spot' if use_spot else 'lambert'}"
+                    f" camera {ci + 1}: replay vs eager, elements differing "
+                    f"{diff}; hit fraction {hit:.4f}; shadowed px "
+                    f"{int(want['shadowed'].sum())}")
+                if any(diff.values()) or hit < 0.5 or bool(want["overflow"]):
+                    fail(f"phase 11c: {mode}: the replayed frame differs "
+                         "from eager, or the frame is malformed")
+                images.append(want["image"])
+            if torch.equal(images[0], images[1]):
+                fail("phase 11c: the two cameras gave the same image")
+            if render_frame_device.cache_size() > new:
+                say(f"phase 11b: frame {mode} "
+                    f"{'spot' if use_spot else 'lambert'}: warm-up + "
+                    f"capture {render_frame_device.capture_seconds()[-1]:.3f}"
+                    f" s")
+
+    # (d) New vertices reach the replay.
+    r = Renderer(scene, cfgs["windowed"], device="cuda")
+    before = r.render(camera, [light], light.eye, use_spot=True)["image"]
+    verts = np.asarray(scene.vertices, np.float32)
+    n = verts.shape[0] // 8           # the last eighth: in view
+    moved = model.rotate_subrange(verts, verts[-n:], verts.shape[0] - n,
+                                  0.5)
+    r.update_vertices(moved)
+    got = r.render(camera, [light], light.eye, use_spot=True)
+    want = render_frame(r.vertices, *frames[0][1:],
+                        **frame_kw("windowed", True))
+    diff = bitwise_diffs(frame_leaves(got), frame_leaves(want))
+    changed = int((got["image"] != before).any(-1).sum())
+    say(f"phase 11d: update_vertices (rotate_subrange of {n} vertices): "
+        f"replay vs eager on the new vertices, elements differing {diff}; "
+        f"{changed} px changed from the frame before")
+    if any(diff.values()) or not changed:
+        fail("phase 11d: the replay after update_vertices is not the eager "
+             "frame of the new vertices")
+    del r, before, got, want
+
+    # (e) The step's replay against the eager step, two targets in turn.
+    rng = np.random.default_rng(0)
+    for target in (step_args["target"], torch.from_numpy(rng.uniform(
+            0.0, 0.3, tuple(step_args["target"].shape)).astype(
+                np.float32)).cuda()):
+        args = dict(step_args, target=target)
+        got = render_and_grad(**args, **step_kw)
+        want = render_and_grad.fn(**args, **step_kw)
+        diff = bitwise_diffs({k: got[k] for k in step_keys},
+                             {k: want[k] for k in step_keys})
+        say(f"phase 11e: step replay vs eager: elements differing {diff}; "
+            f"loss {float(want['loss'])!r}")
+        if any(diff.values()) or bool(want["overflow"]):
+            fail("phase 11e: the replayed step differs from the eager step")
+
+    # (f) Steady times, eager against graphed in turns.
+    credited = {name: 0 for name in kernels}
+    times = {}
+
+    def turns(label, eager, graphed, warm=1, timed=3):
+        ev, host, cred = in_turns(eager, graphed, kernels, warm, timed)
+        for name, n in cred.items():
+            credited[name] += n
+        times[label] = {k: (float(np.mean(ev[k])), float(np.mean(host[k])))
+                        for k in ev}
+        say(f"phase 11f: {label}: ms (CUDA events / host) eager "
+            f"{ev['eager']} / {host['eager']}; graphed {ev['graphed']} / "
+            f"{host['graphed']}; means eager {times[label]['eager']}, "
+            f"graphed {times[label]['graphed']}")
+
+    for mode in ("windowed", "reference"):
+        kw = frame_kw(mode, True)
+        turns(f"{mode} frames 2-4",
+              lambda: render_frame(*frames[0], **kw),
+              lambda: render_frame_device(*frames[0], **kw))
+    turns("steps 1-4", lambda: render_and_grad.fn(**step_args, **step_kw),
+          lambda: render_and_grad(**step_args, **step_kw), warm=1, timed=4)
+    target = np.zeros((flagship.screen_height, flagship.screen_width, 3),
+                      np.float32)
+    train_ms = {"eager": [], "graphed": []}
+    for name, fn in (("eager", render_and_grad.fn),
+                     ("graphed", render_and_grad),
+                     ("graphed", render_and_grad), ("eager",
+                                                    render_and_grad.fn)):
+        for k in kernels.values():
+            k.launches = 0
+        _, ev, host = timed_train(fn, scene, [camera], light, light.eye,
+                                  [target], cfgs["windowed"],
+                                  TrainConfig(steps=5))
+        train_ms[name].append((float(np.mean(ev[1:])),
+                               float(np.mean(host[1:]))))
+        if name == "graphed":
+            for n, k in kernels.items():
+                credited[n] += k.launches
+    say(f"phase 11f: train() ms per step (steps 1-4; CUDA events, host), "
+        f"eager {train_ms['eager']}, graphed {train_ms['graphed']}")
+    say(f"phase 11f: K1-K3 launches credited to the graphed runs "
+        f"{credited}")
+    if min(credited.values()) <= 0:
+        fail("phase 11f: a kernel of the programs was never launched")
+
+    # (g) One profiled replay of a frame and of a step.
+    for label, fn in (
+            ("phase 11g: replayed windowed frame",
+             lambda: render_frame_device(*frames[0],
+                                         **frame_kw("windowed", True))),
+            ("phase 11g: replayed step",
+             lambda: render_and_grad(**step_args, **step_kw))):
+        names = profile_once(label, fn, top_n=10)
+        missing = [k for k, pat in SWEEP_KERNELS.items()
+                   if not any(re.search(pat, n) for n in names)]
+        say(f"{label}: {len(names)} distinct kernels; K1-K3 by name: "
+            f"{'all present' if not missing else f'missing {missing}'}")
+        if missing:
+            fail(f"{label}: {missing} not among the replay's kernels")
+
+    # (i) No fallback: a body that reads on the host cannot be captured.
+    def host_read(x):
+        return x * x.sum().item()
+
+    try:
+        Program(host_read, static=())(torch.ones(4, device="cuda"))
+    except RuntimeError as e:
+        refused = str(e).strip().splitlines()[0]
+    else:
+        refused = None
+    if refused is None:
+        fail("phase 11i: a body with .item() was captured")
+    torch.cuda.synchronize()
+    got = render_frame_device(*frames[0], **frame_kw("windowed", True))
+    want = render_frame(*frames[0], **frame_kw("windowed", True))
+    diff = bitwise_diffs(frame_leaves(got), frame_leaves(want))
+    say(f"phase 11i: a body with .item() raised at capture ({refused[:120]});"
+        f" a replay after it still equals eager: {not any(diff.values())}")
+    if any(diff.values()):
+        fail("phase 11i: the card misbehaves after a refused capture")
+    return credited
 
 
 def dist_main(args):
@@ -1654,6 +1995,13 @@ def main(argv=None):
     say(f"phase 10 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
 
+    # Phase 11: one dispatch per frame and per step.
+    t0 = time.perf_counter()
+    program_launches = program_phase(scene, flagship, camera, light,
+                                     k_wrappers)
+    say(f"phase 11 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - started:.1f} s")
+
     def entry(name, sites_, source, replaces):
         rs = [results[s] for s in sites_]
         b_ms = sum(r["bound_ms"] for r in rs)
@@ -1663,6 +2011,7 @@ def main(argv=None):
                 "reflect_launches": reflect_launches[name],
                 "train_launches": train_launches[name],
                 "mesh_launches": mesh_launches[name],
+                "program_launches": program_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
                 "kernel_ms": sum(r["kernel_ms"] for r in rs),

@@ -13,7 +13,10 @@ without FMA contraction and with IEEE division and square root
 exact.  The whole small frame on the card must also equal the same frame
 rendered on the CPU.  The differentiable step's image must too; its loss
 is a mean (rtol 1e-5, atol 1e-7) and its gradients sums over pixels in
-another order on each device (within 1e-5 * max|g|).
+another order on each device (within 1e-5 * max|g|).  The captured
+programs (render_frame_device, render_and_grad) replay bitwise what
+their eager functions compute on the card; train() through them stays
+within rtol 1e-6 of train() with the eager step.
 """
 
 import dataclasses
@@ -543,3 +546,125 @@ def test_build_packets_on_card_equals_cpu(card):
     for a, b in zip(work_g, work_c):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
     assert not bool(work_c.overflow)
+
+
+# ---------------------------------------------------------------------------
+# Captured programs (core.program): one CUDA graph replay per frame and
+# per step, bitwise the eager functions' (.fn) on the same inputs.
+
+FRAME_KEYS = ("image", "color", "shadowed", "overflow")
+
+
+def _bitwise(got, want, key):
+    if want.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), key
+
+
+@pytest.mark.parametrize("mode", ["windowed", "reference", "extent"])
+def test_graphed_frame_equals_eager(card, mode):
+    """render_frame_device at 128^2 against render_frame, three cameras
+    in turn (a stale input buffer would show), every output bitwise."""
+    from ugrt_torch import bridge
+    from ugrt_torch.api.renderer import render_frame_device
+
+    scene = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(SMALL, light_grid_mode=mode)
+    t = bridge.scene_to_torch(scene, card)
+    lcc = bridge.camcoords_to_torch(LIGHT, cfg.fovy_deg, 1.0, card)[None]
+    lp = bridge.from_numpy(LIGHT.eye, card, np.float32)
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    shadowed = 0
+    for camera in (CAMERA, INSIDE_BOX, CAMERA):
+        cc = bridge.camcoords_to_torch(camera, cfg.fovy_deg, 1.0, card)
+        args = (t["vertices"], t["faces"], t["mat_index"], t["materials"],
+                cc, lcc, lp)
+        got = render_frame_device(*args, **kw)
+        want = render_frame_device.fn(*args, **kw)
+        for key in FRAME_KEYS:
+            _bitwise(got[key], want[key], key)
+        for key in ("t", "face_id", "normal", "ray_dir"):
+            _bitwise(got["primary"][key], want["primary"][key], key)
+        shadowed += int(want["shadowed"].sum())
+    assert shadowed > 100
+
+
+def test_graphed_step_equals_eager(card):
+    """render_and_grad's program against the eager step (.fn) on the
+    rotated Cornell box at 64^2, two targets in turn: loss, color and
+    both gradients bitwise (the kernels merge by atomicMin and OR, and
+    the gathers' backward sums in fixed point)."""
+    from ugrt_torch import bridge
+    from ugrt_torch.diff.render_grad import render_and_grad
+
+    a, b = 0.11, 0.07
+    rx = np.asarray([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                     [0, np.sin(a), np.cos(a)]], dtype=np.float32)
+    ry = np.asarray([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                     [-np.sin(b), 0, np.cos(b)]], dtype=np.float32)
+    scene = procedural.cornell_box(subdiv=2)
+    scene = dataclasses.replace(scene, vertices=np.ascontiguousarray(
+        scene.vertices @ (rx @ ry).T))
+    cfg = dataclasses.replace(RenderConfig(), screen_width=64,
+                              screen_height=64, grid_x=8, grid_y=8)
+    t = bridge.scene_to_torch(scene, card)
+    cc = bridge.camcoords_to_torch(CAMERA, cfg.fovy_deg, 1.0, card)
+    lcc = bridge.camcoords_to_torch(LIGHT, cfg.fovy_deg, 1.0, card)[None]
+    lp = bridge.from_numpy(LIGHT.eye, card, np.float32)
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        target = bridge.from_numpy(rng.uniform(0, 0.3, (64, 64, 3)), card,
+                                   np.float32)
+        args = (t["vertices"], t["materials"], t["faces"], t["mat_index"],
+                cc, lcc, lp, target)
+        got = render_and_grad(*args, **kw)
+        want = render_and_grad.fn(*args, **kw)
+        for key in ("loss", "color", "grad_vertices", "grad_materials",
+                    "overflow"):
+            _bitwise(got[key], want[key], key)
+        assert float(want["grad_materials"].abs().sum()) > 0
+
+
+def test_train_through_program_equals_eager(card, monkeypatch):
+    """train() (its step replayed from one graph) against train() with
+    the eager step, on the single triangle at 64^2, 5 steps: losses and
+    materials within rtol 1e-6."""
+    from ugrt_torch.api import train as tmod
+
+    cfg = dataclasses.replace(RenderConfig(), screen_width=64,
+                              screen_height=64, grid_x=8, grid_y=8)
+    scene = procedural.single_triangle()
+    spec = CameraSpec(eye=(0.01, 0.02, 2.0), look_at=(0, 0, -1),
+                      up=(0, 1, 0), near=0.1, far=100.0)
+    light = CameraSpec(eye=(0.5, 1.5, 1.0), look_at=(0, 0, -3),
+                       up=(0, 1, 0), near=0.1, far=100.0)
+    target = np.full((64, 64, 3), 0.1, np.float32)
+    tcfg = tmod.TrainConfig(learning_rate=5e-2, steps=5)
+    runs = []
+    for step in (tmod.render_and_grad, tmod.render_and_grad.fn):
+        monkeypatch.setattr(tmod, "render_and_grad", step)
+        runs.append(tmod.train(scene, [spec], light, light.eye, [target],
+                               cfg, tcfg, verbose=False, device=card))
+    (v_g, m_g, log_g), (v_e, m_e, log_e) = runs
+    assert log_g[-1] < log_g[0]
+    np.testing.assert_allclose(log_g, log_e, rtol=1e-6)
+    for got, want in ((v_g, v_e), (m_g, m_e)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-6)
+
+
+def test_program_refuses_host_read_at_capture(card):
+    """No fallback: a body that reads a value on the host cannot be
+    captured, and the call raises."""
+    from ugrt_torch.core.program import Program
+
+    def body(x):
+        return x * x.sum().item()
+
+    prog = Program(body, static=())
+    with pytest.raises(RuntimeError):
+        prog(torch.ones(4, device=card))
+    assert prog.cache_size() == 0

@@ -67,7 +67,8 @@ def test_port_imports_nothing_of_ugrt():
         "    ugrt_torch.__path__, 'ugrt_torch.')]",
         "for name in names:",
         "    importlib.import_module(name)",
-        "assert {'ugrt_torch.dist.mesh', 'ugrt_torch.scene.native'} <= set(names)",
+        "assert {'ugrt_torch.dist.mesh', 'ugrt_torch.scene.native',",
+        "        'ugrt_torch.core.program'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",

@@ -5,10 +5,14 @@ images with Adam, one frame per step (``step % len(camera_specs)``),
 through the differentiable step ``diff.render_grad.render_and_grad``
 (K1-K3 on the card), with checkpoints every ``checkpoint_every`` steps
 and resume from the latest one (parameters only, a fresh optimizer
-state, as ugrt does).  ``use_mesh`` shards each step's image over the
-ranks of the default process group (``dist.mesh.sharded_train_step``):
-every rank calls ``train()``, as under ``torchrun``, renders its strip
-of tile columns and takes the gradients summed over the group.
+state, as ugrt does).  The step is a captured program: on one card
+every frame of ``camera_specs`` replays the same CUDA graph (the frames
+share their shapes), and Adam runs eagerly after it, as ugrt's optax
+update runs outside its jit.  ``use_mesh`` shards each step's image over
+the ranks of the default process group (``dist.mesh.sharded_train_step``,
+eager: its collectives are not captured): every rank calls ``train()``,
+as under ``torchrun``, renders its strip of tile columns and takes the
+gradients summed over the group.
 """
 
 from __future__ import annotations

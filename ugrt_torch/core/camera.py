@@ -13,7 +13,8 @@ from ugrt_torch.core.vecmath import normalize
 
 
 def _scalar(x, device):
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # A fill, not a host-to-device copy (capturable; see core.program).
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def primary_ray_dirs(camcoords, width: int, height: int):

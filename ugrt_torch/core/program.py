@@ -1,0 +1,147 @@
+"""Captured programs: the port's counterpart of ``jax.jit`` over a
+statically shaped function of tensors.
+
+ugrt runs its entry points (the frame ``render_frame_device``, the step
+``render_and_grad``) as one compiled XLA program per static key.  On the
+card the same property is a CUDA graph: ``Program(fn, static=names)``
+records ``fn`` once per key and replays the recording on every later
+call, so a frame or a step costs one graph launch instead of a thousand
+or more eager kernel launches from Python.
+
+The key is the values of the ``static`` arguments (hashable, as
+``jax.jit``'s static arguments) and every other argument's shape, dtype
+and device; every argument that is not static must be a tensor.  Per key
+the program holds static input buffers.  Per call it copies each tensor
+argument into its buffer, replays the graph, and returns the output
+pytree cloned: the graph writes its outputs to the same memory on every
+replay, and a caller that keeps one call's result while it makes the
+next must see what eager calls give it.
+
+On the card, the first call of a key runs ``fn`` eagerly on a side
+stream (which builds and loads the kernel libraries and initialises
+autograd, as PyTorch requires before it captures a backward) and then
+captures it.  A capture or replay that fails raises: nothing falls back
+to eager.  On the CPU the same input binding and output cloning run, and
+the "replay" is an eager call of ``fn`` on the buffers.  ``Program.fn``
+is the eager function (the counterpart of ``jax.disable_jit``).
+
+Kernel launch counts.  A replay runs the kernels that the capture
+recorded without running their Python wrappers, so ``counters`` (objects
+with an int ``launches``, the kernel wrappers) are credited with each
+replay's launches: the launches the wrappers counted while they were
+recorded, which launched nothing.
+"""
+
+from __future__ import annotations
+
+import functools
+import inspect
+import time
+from typing import Callable, Sequence
+
+import torch
+from torch.utils import _pytree as pytree
+
+
+class Program:
+    """``fn`` as one captured CUDA graph per (static values, input shapes)
+    key; see the module docstring."""
+
+    def __init__(self, fn: Callable, static: Sequence[str],
+                 counters: Sequence = ()):
+        self.fn = fn
+        self.static = tuple(static)
+        self.counters = tuple(counters)
+        self._signature = inspect.signature(fn)
+        self._cache: dict = {}
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        bound = self._signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        statics = {n: bound.arguments[n] for n in self.static}
+        tensors = {n: v for n, v in bound.arguments.items()
+                   if n not in self.static}
+        for name, value in tensors.items():
+            if not isinstance(value, torch.Tensor):
+                raise TypeError(f"{self.__name__}: argument {name!r} is "
+                                f"neither static nor a tensor "
+                                f"({type(value).__name__})")
+        key = (tuple(statics.items()),
+               tuple((n, t.shape, t.dtype, t.device)
+                     for n, t in tensors.items()))
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = _Capture(self.fn, statics, tensors, self.counters)
+            self._cache[key] = entry
+        return entry(tensors)
+
+    def cache_size(self) -> int:
+        """The number of keys recorded so far."""
+        return len(self._cache)
+
+    def clear(self) -> None:
+        """Drop every recording (and the device memory it holds)."""
+        self._cache.clear()
+
+    def capture_seconds(self) -> list:
+        """Each key's warm-up and capture seconds, in recording order."""
+        return [e.capture_s for e in self._cache.values()]
+
+
+class _Capture:
+    """One key of a Program: its input buffers and, on the card, its
+    graph and the graph's outputs."""
+
+    def __init__(self, fn, statics, example, counters):
+        self.fn = fn
+        self.statics = statics
+        self.counters = counters
+        self.graph = None
+        self.capture_s = 0.0
+        device = next(iter(example.values())).device
+        with torch.no_grad():
+            self.inputs = {n: t.clone(memory_format=torch.contiguous_format)
+                           for n, t in example.items()}
+        if device.type == "cuda":
+            self._capture(device)
+        elif device.type != "cpu":
+            raise ValueError(f"Program: unsupported device {device}")
+
+    def _run(self):
+        return self.fn(**self.inputs, **self.statics)
+
+    def _capture(self, device):
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(device).wait_stream(side)
+            before = [c.launches for c in self.counters]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = self._run()
+            # The wrappers counted launches that they only recorded: each
+            # replay makes them.
+            self.credit = [c.launches - n
+                           for c, n in zip(self.counters, before)]
+            for c, n in zip(self.counters, before):
+                c.launches = n
+            torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, tensors):
+        with torch.no_grad():
+            for name, t in tensors.items():
+                self.inputs[name].copy_(t)
+        if self.graph is None:
+            out = self._run()
+        else:
+            self.graph.replay()
+            out = self.outputs
+            for c, n in zip(self.counters, self.credit):
+                c.launches += n
+        return pytree.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x, out)

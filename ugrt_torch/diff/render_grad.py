@@ -12,14 +12,26 @@ binary and carries no gradient; darkening uses the f32 /3
 pixels.  The backward is autograd's; the corner and material gathers'
 (``core.gather.gather_rows``) are its only sums over pixels, exact in
 fixed point, so the gradients' bits do not depend on summation order.
+
+``render_and_grad`` is one captured program per static key
+(``core.program``), as ugrt's is jitted: on the card the forward, the
+backward and the gathers' fixed-point sums replay as one CUDA graph.
+``render_and_grad.fn`` is the eager step.  ``render_color`` stays a plain
+function: ``dist.mesh`` calls it per strip, between collectives.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.program import Program
 from ugrt_torch.grid import build as gbuild
+from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
+from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
 from ugrt_torch.trace import refine as trefine
@@ -62,6 +74,9 @@ def render_color(vertices, materials, faces, mat_index, camcoords,
             grid.overflow | light_overflow)
 
 
+@functools.partial(
+    Program, static=("cfg", "capacity", "num_lights", "use_spot"),
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep))
 def render_and_grad(vertices, materials, faces, mat_index, camcoords,
                     light_camcoords, light_position, target, *,
                     cfg: RenderConfig, capacity: int, num_lights: int,

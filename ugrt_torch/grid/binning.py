@@ -26,7 +26,12 @@ _I32_LIM = 2147483648.0
 
 
 def _f32(x, like):
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """``x`` (a Python number or a tensor) as f32 on ``like``'s device;
+    a number becomes a fill, not a host-to-device copy (capturable; see
+    core.program)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=like.device)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _sat_int32(x):

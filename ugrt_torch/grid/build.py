@@ -62,7 +62,8 @@ def _split_heavy(ranges, heavy_threshold: int, heavy_capacity: int):
     heavy_ranges = torch.stack(
         [ranges["gxmin"][fidx], ranges["gxmax"][fidx],
          ranges["gymin"][fidx], ranges["gymax"][fidx]], dim=1).to(torch.int32)
-    empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+    empty = torch.ones(4, dtype=torch.int32, device=dev)
+    empty[1::2] = 0          # [1, 0, 1, 0] by fills: no host copy
     heavy_ranges = torch.where((heavy_faces < 0)[:, None], empty,
                                heavy_ranges)
 

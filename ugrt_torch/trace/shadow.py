@@ -116,7 +116,8 @@ def build_packets(cells, cfg: RenderConfig):
 
 
 def _f32(x, device):
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # A fill, not a host-to-device copy (capturable; see core.program).
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _hit_points(primary, primary_eye):

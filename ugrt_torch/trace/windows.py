@@ -33,7 +33,15 @@ from ugrt_torch.trace.heavy import HeavyCoeffs
 
 WIN = 128     # triangles per primary / heavy window
 NCOMP = 16    # f32 components per triangle row
-_EMPTY_BOX = (1.0, 0.0, 1.0, 0.0)
+
+
+def _empty_box(like):
+    """The empty footprint (x0, x1, y0, y1) = (1, 0, 1, 0), f32 on
+    ``like``'s device, made by fills: no copy from host memory, which a
+    captured frame (core.program) cannot record."""
+    box = like.new_ones(4)
+    box[1::2] = 0.0
+    return box
 
 
 def _face_edges(vertices, faces, origin):
@@ -84,7 +92,7 @@ def pack_tri_windows_coeff(vertices, faces, grid, origin, win: int = WIN):
         torch.cat([cross(e2, e1), cross(e2, tvec), c, k[:, None]], dim=1),
         grid, faces)
     cap = data.shape[0]
-    box = data.new_tensor(_EMPTY_BOX).expand(cap, 4)
+    box = _empty_box(data).expand(cap, 4)
     out = torch.cat([data, grid.sorted_keys.float()[:, None], box,
                      data.new_zeros((cap, 1))], dim=1)
     return _pad_rows(out, win, {11: 1.0, 13: 1.0})
@@ -96,8 +104,7 @@ def _live_rows(co: HeavyCoeffs):
     live = co.live[:, None]
     abck = torch.where(live, torch.cat([co.a, co.b, co.c, co.k[:, None]],
                                        dim=1), 0.0)
-    box = torch.where(live, co.ranges.float(),
-                      abck.new_tensor(_EMPTY_BOX))
+    box = torch.where(live, co.ranges.float(), _empty_box(abck))
     return abck, box
 
 
