@@ -53,15 +53,35 @@ Phases (each prints a line; any failure raises and exits non-zero):
     S1's three products also as one torch.bmm (the library yardstick,
     "highest" and TF32) and S1's whole function in PyTorch (that bmm,
     then u and v); every probe kernel must have launched.
- 8. The reflective frame (render_frame_reflective): the Cornell box at
-    128^2 (uniform grid 8^3) on the card and on the CPU, where the
-    reflection's face and t and the u8 image may differ on at most 0.1%
-    of pixels; then 4 flagship frames in the CLI's default "reference"
-    light mode with ugrt's reflection defaults (32^3 uniform grid,
-    batches of 32 up to 8): CUDA-event and host ms, overflow (fails),
+ 8. The reflective frame (render_frame_reflective, one captured program
+    per static key, its DDA the kernel D1): the Cornell box at 128^2
+    (uniform grid 8^3) on the card and on the CPU, where the reflection's
+    face and t and the u8 image may differ on at most 0.1% of pixels.
+    Then at the flagship with ugrt's reflection defaults (32^3 uniform
+    grid, batches of 32 up to 8, skip 6): (b) the eager body in
+    "reference" and "windowed" mode, Lambert and spot, under
+    torch.cuda.set_sync_debug_mode("error"): no host sync.  (a) D1
+    against its plain version, bitwise (t, face_id, overflow), on the
+    1,048,576 reflection rays of the reference-mode frame (recorded from
+    the eager body) and on the DDA's edge case (ugrt_torch/micro/
+    dda_edge.py, which must overflow): CUDA-event ms, the CUDA kernel
+    alone (torch.profiler), host ms per call, plain ms, the (ray, face)
+    tests the rays need against the lane slots D1's warps walk (its
+    counting launch), the DDA steps (D1's, the CPU's count, beside the
+    plain version's on the card), and the bound max(flops / 67 TFLOP/s,
+    bytes / 3.35 TB/s).  The main path: the programs dropped, 4 frames
+    in the CLI's default "reference" mode (frame 1 records Lambert's key,
+    frame 2 the spotlight's): CUDA-event and host ms, overflow (fails),
     the share of primary hits whose reflection hits a face, the uniform
-    grid's pairs and largest cell, the DDA steps, K1-K3's launches; one
-    more frame under torch.profiler.
+    grid's pairs and largest cell, the DDA steps, K1-K3's and D1's
+    launches.  (c) Warm-up + capture seconds per key.  (d) Replays bitwise
+    equal to the eager body (image, color, shadowed, reflection t and
+    face_id, overflow) in both modes, Lambert and spot, on CAMERA and
+    CAMERA_2 in turn, and after Renderer.update_vertices of the last
+    eighth.  (e) Eager, graphed, graphed, eager: ms of frames 2-4.  (f)
+    One profiled replay: busy share, kernel count; K1-K3 and D1 by name.
+    (g) Peak and held device memory of the eager body and of each key
+    from nothing recorded, as phase 11h.
  9. The training loop train() on bench.py's flagship workload (both
     parameter groups): 6 steps with a checkpoint every 3, then a resume
     to 8 steps, with CUDA-event and host ms per step and the losses
@@ -107,7 +127,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
     frames and steps, and what a capture holds.  (i) A Program whose
     body calls .item() must raise at capture, and a replay after it
     still equal eager.
-Then one JSON line with the kernels, and last
+Then one JSON line with the kernels (D1 at the flagship reflective
+frame's rays, its launches those of phase 8's 4 frames), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --dist, under ``python -m torch.distributed.run --standalone
@@ -175,6 +196,8 @@ FLOPS_K1 = 43       # pvec 9, det 5, 1/det, u 6, qvec 9, v 6, t 6, u+v
 FLOPS_K2 = 21       # det, up, vp 5 each, det2, ud, vd, 1/det, t, ud+vd
 FLOPS_K3 = 30       # det 5, 1/det, u 6, v 6, t, u+v, t*d 3, |t*d| 6, +eps
 FLOPS_S2 = 41       # 1 product, then 8 x (mul, add, mul, sub, abs)
+FLOPS_D1 = 46       # tvec 3, pvec 9, det 5, 1/det, u 6, qvec 9, v 6, t 6,
+                    # u+v (the DDA's own steps not counted)
 NO_LIBRARY = {
     "primary_sweep": "no single PyTorch call computes a per-ray lex-min "
                      "(t, face) over cell-keyed triangle windows",
@@ -186,6 +209,8 @@ NO_LIBRARY = {
                   "min and first argmin over gathered tiles",
     "heavy_sweep": "no single PyTorch call computes a per-ray lex-min "
                    "(t, face) over footprint-gated faces",
+    "uniform_dda": "no single PyTorch call walks rays through a uniform "
+                   "grid and takes each ray's first hit in its cells",
 }
 
 
@@ -826,14 +851,82 @@ def frame_inputs(scene, cfg, camera, light, device):
             lcc[None], bridge.from_numpy(light.eye, device, np.float32))
 
 
-def reflect_phase(scene, flagship, camera, light, kernels):
-    """Phase 8: the reflective frame.  Returns K1-K3's launches over the
-    flagship frames."""
+def dda_check(label, args, kw, expect_overflow):
+    """Phase 8a: D1 against its plain version on ``args`` (bitwise t,
+    face_id, overflow), timed, with its needed and walked tests and its
+    bound.  Returns the record."""
     import torch
 
-    from ugrt_torch.api.renderer import render_frame_reflective
+    from ugrt_torch.kernels import uniform_dda as kdda
+    from ugrt_torch.micro.k3_chunks import device_ms
+
+    def run():
+        return kdda.uniform_dda(*args, **kw)
+
+    got = run()
+    want = kdda.uniform_dda_plain(*args, **kw)
+    torch.cuda.synchronize()
+    mism = {"t": int((got["t"].view(torch.int32)
+                      != want["t"].view(torch.int32)).sum()),
+            "face_id": int((got["face_id"] != want["face_id"]).sum()),
+            "overflow": int(bool(got["overflow"]) != bool(want["overflow"]))}
+    err = float((got["t"].double() - want["t"].double()).abs().max())
+    ms = cuda_ms(run, 20)
+    # The kernel alone (torch.profiler); a profile that lists no D1
+    # kernel is taken again, and after three the time is not measured.
+    kernel_ms = None
+    for _ in range(3):
+        kernel_ms = sum(v for k, v in device_ms(run).items()
+                        if "uniform_dda" in k) or None
+        if kernel_ms:
+            break
+    host = host_ms(run, 20)
+    plain_ms = cuda_ms(lambda: kdda.uniform_dda_plain(*args, **kw), 2)
+    stats = kdda.uniform_dda_stats(*args, **kw)
+    ftab, grid, origins, dirs, active, excl, lo, hi, _ = args
+    n = origins.shape[0]
+    # Inputs read once (sorted_faces up to the grid's pairs), outputs
+    # written once; operations of the needed tests alone.
+    nbyte = (nbytes(ftab, grid.cell_count, grid.cell_offset, origins, dirs,
+                    active, excl, lo, hi) + 4 * int(grid.total_pairs)
+             + 8 * n + 8)
+    flops = stats["needed"] * FLOPS_D1
+    b_ms, b_by = bound(flops, nbyte)
+    hits = int((want["face_id"] >= 0).sum())
+    say(f"phase 8a: D1 {label} ({n} rays, {int(active.sum())} active, "
+        f"{hits} hit; grid {tuple(args[-1])}, {int(grid.total_pairs)} "
+        f"pairs): mismatches {mism}, max |diff| {err}, overflow "
+        f"{bool(got['overflow'])}; steps {int(got['steps'])} (D1, the CPU's "
+        f"count) / {int(want['steps'])} (plain on the card, to its last "
+        f"compaction); kernel {ms:.4f} ms (its CUDA kernel alone "
+        f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f}'} ms,"
+        f" host {host:.4f} ms per call), plain "
+        f"{plain_ms:.3f} ms; needed tests {stats['needed']}, walked "
+        f"{stats['walked']} lane slots "
+        f"({stats['walked'] / max(stats['needed'], 1):.2f}x); {flops} flops, "
+        f"{nbyte} bytes: bound {b_ms:.5f} ms by {b_by} "
+        f"({100 * b_ms / ms:.1f}% of the kernel's time)")
+    if any(mism.values()) or bool(got["overflow"]) != expect_overflow:
+        fail(f"phase 8a: D1 disagrees with its plain version on {label}, "
+             f"or its overflow is not {expect_overflow}")
+    return dict(ms=ms, kernel_ms=kernel_ms, host_ms=host, plain_ms=plain_ms,
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                needed_tests=stats["needed"], walked_tests=stats["walked"],
+                steps=int(got["steps"]))
+
+
+def reflect_phase(scene, flagship, camera, light, kernels):
+    """Phase 8: the reflective frame, one captured program per key.
+    ``kernels`` are K1-K3's and D1's wrappers by name.  Returns (their
+    launches over the flagship frames, D1's records by input)."""
+    import numpy as np
+    import torch
+
+    from ugrt_torch.api.renderer import Renderer, render_frame_reflective
     from ugrt_torch.core.host_camera import CameraSpec
-    from ugrt_torch.scene import procedural
+    from ugrt_torch.micro import dda_edge
+    from ugrt_torch.scene import model, procedural
+    from ugrt_torch.trace import reflect as treflect
 
     small = dataclasses.replace(flagship, screen_width=128,
                                 screen_height=128, grid_x=16, grid_y=16)
@@ -855,10 +948,55 @@ def reflect_phase(scene, flagship, camera, light, kernels):
             or bool(got["overflow"])):
         fail("phase 8: the card's reflective frame disagrees with the CPU's")
 
-    cfg = dataclasses.replace(flagship, light_grid_mode="reference")
-    args = frame_inputs(scene, cfg, camera, light, "cuda")
-    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
-              num_lights=1)
+    modes = ("reference", "windowed")
+    cfgs = {m: dataclasses.replace(flagship, light_grid_mode=m)
+            for m in modes}
+    cams = (camera, CameraSpec(**CAMERA_2))
+    frames = [frame_inputs(scene, flagship, c, light, "cuda") for c in cams]
+    args = frames[0]
+
+    def frame_kw(mode, use_spot):
+        return dict(cfg=cfgs[mode], capacity=flagship.pair_capacity(
+            scene.num_faces), num_lights=1, use_spot=use_spot)
+
+    # (b) The eager body, with any host sync an error.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for mode in modes:
+            for use_spot in (False, True):
+                render_frame_reflective.fn(*args, **frame_kw(mode, use_spot))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("phase 8b: eager reflective frames (reference, windowed x Lambert, "
+        "spot) ran under torch.cuda.set_sync_debug_mode('error'): no host "
+        "sync")
+
+    # (a) D1 against its plain version: the flagship reference frame's
+    # reflection rays (recorded from the eager body), and the edge case.
+    seen = []
+
+    def record(*a, **k):
+        seen.append((a, dict(k)))
+        return kernels["uniform_dda"](*a, **k)
+
+    treflect.uniform_dda = record
+    try:
+        render_frame_reflective.fn(*args, **frame_kw("reference", True))
+    finally:
+        treflect.uniform_dda = kernels["uniform_dda"]
+    dda = {"flagship reference": dda_check("flagship reference", *seen[0],
+                                           expect_overflow=False)}
+    dda["edge case"] = dda_check(
+        "edge case", dda_edge.dda_edge_inputs("cuda"),
+        dict(cfg=flagship, max_batches=dda_edge.MAX_BATCHES, eps=1e-4,
+             batch=dda_edge.BATCH, skip_k=6), expect_overflow=True)
+    del seen
+
+    # The main path: 4 flagship frames, reference mode, through the
+    # program (frames 1 and 2 record the Lambert and spot keys).
+    render_frame_reflective.clear()
     for k in kernels.values():
         k.launches = 0
     times = []
@@ -868,7 +1006,7 @@ def reflect_phase(scene, flagship, camera, light, kernels):
         end = torch.cuda.Event(enable_timing=True)
         h0 = time.perf_counter()
         start.record()
-        out = render_frame_reflective(*args, **kw, use_spot=i >= 1)
+        out = render_frame_reflective(*args, **frame_kw("reference", i >= 1))
         end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - h0) * 1e3
@@ -879,28 +1017,126 @@ def reflect_phase(scene, flagship, camera, light, kernels):
         share = float((refl["face_id"][prim_hit] >= 0).float().mean())
         overflow = bool(out["overflow"])
         say(f"phase 8: reflective frame {i + 1} "
-            f"({'spot' if i else 'lambert'}{', warmup' if i == 0 else ''}): "
+            f"({'spot' if i else 'lambert'}"
+            f"{', capture' if i < 2 else ', replay'}): "
             f"{ev:.3f} ms (CUDA events), {wall:.3f} ms host; overflow "
             f"{overflow}; primary hits {int(prim_hit.sum())}, of them "
             f"{share:.4f} reflect onto a face; uniform grid "
             f"{int(ug.total_pairs)} pairs, largest cell "
             f"{int(ug.cell_count.max())} faces, "
             f"{int((ug.cell_count > 0).sum())} cells non-empty; DDA steps "
-            f"{refl['steps']}")
+            f"{int(refl['steps'])}")
         if overflow:
             fail("phase 8: the flagship reflective frame overflowed")
         if (tuple(out["image"].shape)
-                != (cfg.screen_height, cfg.screen_width, 3)
+                != (flagship.screen_height, flagship.screen_width, 3)
                 or not torch.isfinite(out["color"]).all() or share < 0.1):
             fail("phase 8: malformed reflective frame")
     launches = {name: k.launches for name, k in kernels.items()}
     say(f"phase 8: launches {launches}; steady "
-        f"{sum(times[1:]) / len(times[1:]):.3f} ms per reflective frame")
+        f"{sum(times[2:]) / len(times[2:]):.3f} ms per reflective frame "
+        f"(frames 3-4, replays)")
     if min(launches.values()) <= 0:
         fail("phase 8: a kernel of the reflective frame was never launched")
-    profile_once("reflective frame",
-                 lambda: render_frame_reflective(*args, **kw, use_spot=True))
-    return launches
+    # (c) Warm-up + capture seconds of the keys recorded so far.
+    say(f"phase 8c: reference lambert, spot: warm-up + capture "
+        f"{render_frame_reflective.capture_seconds()} s")
+
+    # (d) Replays against the eager body: both modes, Lambert and spot,
+    # two cameras in turn; then new vertices.
+    for mode in modes:
+        for use_spot in (False, True):
+            kw = frame_kw(mode, use_spot)
+            new = render_frame_reflective.cache_size()
+            images = []
+            for ci, fargs in enumerate(frames):
+                got = render_frame_reflective(*fargs, **kw)
+                want = render_frame_reflective.fn(*fargs, **kw)
+                diff = bitwise_diffs(reflective_leaves(got),
+                                     reflective_leaves(want))
+                say(f"phase 8d: {mode} {'spot' if use_spot else 'lambert'} "
+                    f"camera {ci + 1}: replay vs eager, elements differing "
+                    f"{diff}; reflection hits "
+                    f"{int((want['reflection']['face_id'] >= 0).sum())}")
+                if any(diff.values()) or bool(want["overflow"]):
+                    fail(f"phase 8d: {mode}: the replayed reflective frame "
+                         "differs from eager, or it overflowed")
+                images.append(want["image"])
+            if torch.equal(images[0], images[1]):
+                fail("phase 8d: the two cameras gave the same image")
+            if render_frame_reflective.cache_size() > new:
+                say(f"phase 8c: {mode} {'spot' if use_spot else 'lambert'}: "
+                    f"warm-up + capture "
+                    f"{render_frame_reflective.capture_seconds()[-1]:.3f} s")
+    r = Renderer(scene, cfgs["reference"], device="cuda")
+    kw = frame_kw("reference", True)
+    before = render_frame_reflective(r.vertices, *args[1:], **kw)["image"]
+    verts = np.asarray(scene.vertices, np.float32)
+    n = verts.shape[0] // 8           # the last eighth: in view
+    r.update_vertices(model.rotate_subrange(verts, verts[-n:],
+                                            verts.shape[0] - n, 0.5))
+    got = render_frame_reflective(r.vertices, *args[1:], **kw)
+    want = render_frame_reflective.fn(r.vertices, *args[1:], **kw)
+    diff = bitwise_diffs(reflective_leaves(got), reflective_leaves(want))
+    changed = int((got["image"] != before).any(-1).sum())
+    say(f"phase 8d: update_vertices (rotate_subrange of {n} vertices): "
+        f"replay vs eager on the new vertices, elements differing {diff}; "
+        f"{changed} px changed from the frame before")
+    if any(diff.values()) or not changed:
+        fail("phase 8d: the replay after update_vertices is not the eager "
+             "reflective frame of the new vertices")
+    del r, before, got, want
+
+    # (e) Frames 2-4, eager against graphed in turns.
+    kw = frame_kw("reference", True)
+    ev, host, credited = in_turns(
+        lambda: render_frame_reflective.fn(*args, **kw),
+        lambda: render_frame_reflective(*args, **kw), kernels)
+    say(f"phase 8e: reference spot frames 2-4: ms (CUDA events / host) "
+        f"eager {ev['eager']} / {host['eager']}; graphed {ev['graphed']} / "
+        f"{host['graphed']}; means eager {float(np.mean(ev['eager']))}, "
+        f"graphed {float(np.mean(ev['graphed']))}; launches credited to the "
+        f"graphed runs {credited}")
+
+    # (f) One profiled replay.
+    names = profile_once("phase 8f: replayed reflective frame",
+                         lambda: render_frame_reflective(*args, **kw),
+                         top_n=10)
+    missing = [k for k, pat in {**SWEEP_KERNELS, **DDA_KERNEL}.items()
+               if not any(re.search(pat, nm) for nm in names)]
+    say(f"phase 8f: {len(names)} distinct kernels; K1-K3 and D1 by name: "
+        f"{'all present' if not missing else f'missing {missing}'}")
+    if missing:
+        fail(f"phase 8f: {missing} not among the replay's kernels")
+
+    # (g) Memory of the eager body and of each key from nothing recorded.
+    render_frame_reflective.clear()
+    mem = {}
+    _, _, mem["eager frame"], _ = memory_of(
+        lambda: render_frame_reflective.fn(*args, **kw))
+    for label, use_spot in (("lambert", False), ("spot", True)):
+        call_kw = frame_kw("reference", use_spot)
+        _, first_s, mem[f"{label} capture"], mem[f"{label} held"] = \
+            memory_of(lambda: render_frame_reflective(*args, **call_kw))
+        _, _, mem[f"{label} replay"], _ = memory_of(
+            lambda: render_frame_reflective(*args, **call_kw))
+        say(f"phase 8c: reference {label} from nothing recorded: warm-up + "
+            f"capture {render_frame_reflective.capture_seconds()[-1]:.3f} s,"
+            f" first call {first_s:.3f} s in all")
+    say("phase 8g: reflective frame device memory MB (peak "
+        "max_memory_allocated above the start of the call; 'held' = "
+        "memory_reserved kept after the capture): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in mem.items()))
+    render_frame_reflective.clear()
+    return launches, dda
+
+
+def reflective_leaves(out):
+    """The reflective frame's results that phase 8 holds bitwise."""
+    refl = out["reflection"]
+    return dict(image=out["image"], color=out["color"],
+                shadowed=out["shadowed"], t=refl["t"],
+                face_id=refl["face_id"], overflow=out["overflow"])
 
 
 def timed_train(step_fn, *args, **kwargs):
@@ -1374,10 +1610,11 @@ def memory_of(fn):
             (torch.cuda.memory_reserved() - reserved) / 2**20)
 
 
-# K1-K3's CUDA kernels by name, as torch.profiler lists them.
+# K1-K3's and D1's CUDA kernels by name, as torch.profiler lists them.
 SWEEP_KERNELS = {"primary_sweep": r"(?<!heavy_)primary_sweep_kernel",
                  "heavy_primary_sweep": r"heavy_primary_sweep_kernel",
                  "shadow_sweep": r"shadow_sweep_kernel"}
+DDA_KERNEL = {"uniform_dda": r"uniform_dda_kernel"}
 
 
 def program_phase(scene, flagship, camera, light, kernels):
@@ -1628,6 +1865,7 @@ def dist_main(args):
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.kernels.uniform_dda import uniform_dda
     from ugrt_torch.scene import procedural
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1871,6 +2109,7 @@ def main(argv=None):
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.kernels.uniform_dda import uniform_dda
     from ugrt_torch.scene import procedural
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1980,9 +2219,14 @@ def main(argv=None):
     step_launches = step_phase(scene, flagship, camera, light, k_wrappers)
     probes = probe_phase()
 
-    # Phase 8: the reflective frame; phase 9: the training loop.
-    reflect_launches = reflect_phase(scene, flagship, camera, light,
-                                     k_wrappers)
+    # Phase 8: the reflective frame (its program, and D1); phase 9: the
+    # training loop.
+    t0 = time.perf_counter()
+    reflect_launches, dda = reflect_phase(
+        scene, flagship, camera, light,
+        dict(k_wrappers, uniform_dda=uniform_dda))
+    say(f"phase 8 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - started:.1f} s")
     train_launches = train_phase(scene, flagship, camera, light, k_wrappers)
 
     # Phase 10: sharding (an NCCL group of one, strips on one card), the
@@ -2033,7 +2277,21 @@ def main(argv=None):
         entry("shadow_sweep", ["shadow_sweep", "shadow_sweep box=True"],
               "ugrt_torch/csrc/shadow_sweep.cu",
               "ugrt/trace/pallas_tracer.py:390"),
-    ] + probes
+    ]
+    main_dda = dda["flagship reference"]
+    kernels.append({
+        "name": "uniform_dda", "route": "cuda",
+        "source": "ugrt_torch/csrc/uniform_dda.cu",
+        "replaces": "ugrt/trace/reflect.py:56 (trace_uniform_dda: XLA "
+                    "control flow, not a Pallas kernel)",
+        "launches": reflect_launches["uniform_dda"],
+        "max_abs_err": max(r["max_abs_err"] for r in dda.values()),
+        **{k: main_dda[k] for k in ("ms", "kernel_ms", "host_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "needed_tests", "walked_tests")},
+        "library_ms": None, "library_none": NO_LIBRARY["uniform_dda"],
+        "sites": dda})
+    kernels += probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

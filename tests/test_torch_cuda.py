@@ -14,9 +14,12 @@ exact.  The whole small frame on the card must also equal the same frame
 rendered on the CPU.  The differentiable step's image must too; its loss
 is a mean (rtol 1e-5, atol 1e-7) and its gradients sums over pixels in
 another order on each device (within 1e-5 * max|g|).  The captured
-programs (render_frame_device, render_and_grad) replay bitwise what
-their eager functions compute on the card; train() through them stays
-within rtol 1e-6 of train() with the eager step.
+programs (render_frame_device, render_frame_reflective, render_and_grad)
+replay bitwise what their eager functions compute on the card; train()
+through them stays within rtol 1e-6 of train() with the eager step.  The
+reflection DDA D1 is bitwise equal to its plain version (t, face_id,
+overflow) on the Cornell reflective frame's rays and on the DDA's edge
+case (ugrt_torch/micro/dda_edge.py).
 """
 
 import dataclasses
@@ -295,6 +298,91 @@ def test_reflective_frame_on_card_equals_cpu(card):
                                       err_msg=key)
     np.testing.assert_array_equal(got["image"].cpu().numpy(),
                                   want["image"].numpy())
+
+
+def _reflective_inputs(device, camera=CAMERA, cfg=SMALL):
+    from ugrt_torch import bridge
+
+    scene = procedural.cornell_box(subdiv=2)
+    t = bridge.scene_to_torch(scene, device)
+    cc = bridge.camcoords_to_torch(camera, cfg.fovy_deg, 1.0, device)
+    lcc = bridge.camcoords_to_torch(LIGHT, cfg.fovy_deg, 1.0, device)
+    args = (t["vertices"], t["faces"], t["mat_index"], t["materials"], cc,
+            lcc[None], bridge.from_numpy(LIGHT.eye, device, np.float32))
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True, uniform_dims=(8, 8, 8))
+    return args, kw
+
+
+@pytest.mark.parametrize("case", ["cornell", "edge"])
+def test_uniform_dda_matches_plain_on_card(card, monkeypatch, case):
+    """D1 against its plain version on the card, bit for bit (t, face_id,
+    overflow): on the inputs that the 128^2 Cornell reflective frame gives
+    it, and on the DDA's edge case (a cell deeper than its batches,
+    coincident faces, zero direction components, rays outside the AABB,
+    inactive rays)."""
+    from ugrt_torch.api.renderer import render_frame_reflective
+    from ugrt_torch.kernels import uniform_dda as kdda
+    from ugrt_torch.micro import dda_edge
+    from ugrt_torch.trace import reflect as treflect
+
+    if case == "edge":
+        args = dda_edge.dda_edge_inputs(card)
+        kw = dict(max_batches=dda_edge.MAX_BATCHES, eps=1e-4,
+                  batch=dda_edge.BATCH, skip_k=6)
+    else:
+        seen = []
+
+        def record(*a, **k):
+            seen.append((a, dict(k)))
+            return kdda.uniform_dda(*a, **k)
+
+        monkeypatch.setattr(treflect, "uniform_dda", record)
+        fargs, fkw = _reflective_inputs(card)
+        render_frame_reflective.fn(*fargs, **fkw)
+        (args, kw), = seen
+        del kw["cfg"]
+    before = kdda.uniform_dda.launches
+    got = kdda.uniform_dda(*args, cfg=SMALL, **kw)
+    want = kdda.uniform_dda_plain(*args, cfg=SMALL, **kw)
+    torch.cuda.synchronize()
+    assert kdda.uniform_dda.launches == before + 1
+    assert got["t"].device.type == "cuda"
+    _bitwise(got["t"], want["t"], "t")
+    for key in ("face_id", "overflow"):
+        assert torch.equal(got[key], want[key]), key
+    assert bool(got["overflow"]) == (case == "edge")
+    assert int((want["face_id"] >= 0).sum()) > (5000 if case == "cornell"
+                                                 else 500)
+    assert 0 < int(got["steps"]) <= sum(args[-1])
+
+
+@pytest.mark.parametrize("mode", ["windowed", "reference"])
+def test_graphed_reflective_frame_equals_eager(card, mode):
+    """render_frame_reflective's program at 128^2 (uniform grid 8^3)
+    against its eager body, three cameras in turn: image, color,
+    shadowed, overflow and the reflection's t and face_id bitwise; each
+    replay credits D1 with one launch."""
+    from ugrt_torch.api.renderer import render_frame_reflective
+    from ugrt_torch.kernels.uniform_dda import uniform_dda
+
+    cfg = dataclasses.replace(SMALL, light_grid_mode=mode)
+    hits = 0
+    for camera in (CAMERA, INSIDE_BOX, CAMERA):
+        args, kw = _reflective_inputs(card, camera, cfg)
+        got = render_frame_reflective(*args, **kw)
+        before = uniform_dda.launches
+        again = render_frame_reflective(*args, **kw)
+        assert uniform_dda.launches == before + 1
+        want = render_frame_reflective.fn(*args, **kw)
+        for out in (got, again):
+            for key in FRAME_KEYS:
+                _bitwise(out[key], want[key], key)
+            for key in ("t", "face_id"):
+                _bitwise(out["reflection"][key], want["reflection"][key],
+                         key)
+        hits += int((want["reflection"]["face_id"] >= 0).sum())
+    assert hits > 10000
 
 
 def test_train_on_card_equals_cpu(card, tmp_path):

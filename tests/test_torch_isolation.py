@@ -68,7 +68,8 @@ def test_port_imports_nothing_of_ugrt():
         "for name in names:",
         "    importlib.import_module(name)",
         "assert {'ugrt_torch.dist.mesh', 'ugrt_torch.scene.native',",
-        "        'ugrt_torch.core.program'} <= set(names)",
+        "        'ugrt_torch.core.program', 'ugrt_torch.kernels.uniform_dda',",
+        "        'ugrt_torch.micro.dda_edge'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",

@@ -1,5 +1,6 @@
 """ugrt_torch's captured programs (core.program): the frame
-``render_frame_device`` and the step ``render_and_grad`` on the CPU.
+``render_frame_device``, the reflective frame ``render_frame_reflective``
+and the step ``render_and_grad`` on the CPU.
 
 Two kinds of test:
 - The capture-safety guard.  A CUDA graph records stream work only: a
@@ -9,8 +10,8 @@ Two kinds of test:
   capture on the card.  The bodies run here under a recording
   ``TorchFunctionMode`` and a ``TorchDispatchMode`` (which also sees the
   backward's ops), and any such call fails the test with its line.  The
-  sweeps' CPU branches are exempt: their plain versions stand in for
-  one kernel launch each.
+  CPU branches of the sweeps and of the reflection DDA D1 are exempt:
+  their plain versions stand in for one kernel launch each.
 - ``Program`` on the CPU: the same input binding and output cloning as
   on the card, with an eager call in place of the replay; the frames
   and steps bitwise equal to the eager functions', and held to ugrt's
@@ -18,7 +19,9 @@ Two kinds of test:
 
 Tolerance: none for frames and the step against eager (the program runs
 the same function on copies of the inputs).  Against ugrt, the step
-keeps tests/test_torch_grad.py's bounds.
+keeps tests/test_torch_grad.py's bounds, and the reflective frame
+tests/test_torch_reflect.py's (at most 0.1% of u8 pixels differ, >=
+99.9% of reflection face ids equal, the shadow mask exact).
 """
 
 import dataclasses
@@ -39,10 +42,14 @@ from ugrt_torch.core.program import Program
 from ugrt_torch.diff import render_grad as rg_t
 from ugrt_torch.scene import model, procedural
 from ugrt_torch.trace import primary as tprimary
+from ugrt_torch.trace import reflect as treflect
 from ugrt_torch.trace import shadow as tshadow
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FRAME_STATIC = ("cfg", "capacity", "num_lights", "use_spot")
+REFLECT_DIMS = (8, 8, 8)
+LIGHT = cam.CameraSpec(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
+                       up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
 SECOND_LIGHT = cam.CameraSpec(eye=(-0.6, 0.5, 0.9), look_at=(0.2, -1.0, 0.0),
                               up=(0, 0, 1), near=0.1, far=100.0)
 OTHER_CAMERA = cam.CameraSpec(eye=(0.3, -0.1, 2.2), look_at=(0.0, 0.05, 0.0),
@@ -142,12 +149,13 @@ def _index_items(index):
 
 @pytest.fixture
 def guard(monkeypatch):
-    """A HostReadGuard with the three sweeps exempt where the trace
-    calls them."""
+    """A HostReadGuard with the three sweeps and the DDA D1 exempt where
+    the trace calls them."""
     g = HostReadGuard()
     for mod, name in ((tprimary, "primary_sweep"),
                       (tprimary, "heavy_primary_sweep"),
-                      (tshadow, "shadow_sweep")):
+                      (tshadow, "shadow_sweep"),
+                      (treflect, "uniform_dda")):
         monkeypatch.setattr(mod, name, g.exempt(getattr(mod, name)))
     return g
 
@@ -256,6 +264,25 @@ def test_frame_is_capture_safe(guard, tiny_cfg, mode, num_lights, use_spot):
     assert out["image"].shape == (64, 64, 3)
 
 
+@pytest.mark.parametrize("use_spot", [False, True], ids=["lambert", "spot"])
+@pytest.mark.parametrize("mode", ["windowed", "reference"])
+def test_reflective_frame_is_capture_safe(guard, tiny_cfg, mode, use_spot):
+    """render_frame_reflective's eager body (the plain frame, the uniform
+    grid, the reflection rays and their shading) reads nothing on the
+    host and makes no tensor from host values."""
+    cfg = bridge.render_config(dataclasses.replace(tiny_cfg,
+                                                   light_grid_mode=mode))
+    scene = procedural.cornell_box(subdiv=2)
+    lights = [bridge.camera_spec(LIGHT)]
+    args = _frame_args(cfg, scene, bridge.camera_spec(OTHER_CAMERA), lights)
+    with guard:
+        out = rapi.render_frame_reflective.fn(
+            **args, **_frame_kw(cfg, scene, lights, use_spot),
+            uniform_dims=REFLECT_DIMS)
+    assert guard.found == []
+    assert int((out["reflection"]["face_id"] >= 0).sum()) > 1000
+
+
 @pytest.mark.parametrize("scene,use_spot,num_lights", [
     ("tri", True, 1), ("cornell", False, 2)])
 def test_step_is_capture_safe(guard, tiny_cfg, scene, use_spot, num_lights):
@@ -326,6 +353,80 @@ def test_render_frame_device_equals_eager(small_cfg, cornell, generic_camera,
     _assert_bitwise(second, want[1])
     assert not torch.equal(want[0]["image"], want[1]["image"])
     assert int(want[0]["shadowed"].sum()) > 100
+
+
+def _reflective_leaves(out):
+    """The reflective frame's results that chip_smoke holds bitwise."""
+    refl = out["reflection"]
+    return dict(image=out["image"], color=out["color"],
+                shadowed=out["shadowed"], t=refl["t"],
+                face_id=refl["face_id"], steps=refl["steps"],
+                overflow=out["overflow"])
+
+
+def test_render_frame_reflective_equals_eager(tiny_cfg, cornell,
+                                              generic_camera, generic_light):
+    """render_frame_reflective is a Program: two cameras in turn, each
+    bitwise its eager body's (``.fn``); the first call's result is
+    unchanged by the second, the uniform grid comes back too, and each
+    static key (Lambert, spot) is one recording."""
+    prog = rapi.render_frame_reflective
+    assert isinstance(prog, Program)
+    prog.clear()
+    cfg = bridge.render_config(dataclasses.replace(
+        tiny_cfg, light_grid_mode="reference"))
+    scene = bridge.scene(cornell)
+    lights = [bridge.camera_spec(generic_light)]
+    cams = [bridge.camera_spec(c) for c in (generic_camera, OTHER_CAMERA)]
+    args = [_frame_args(cfg, scene, c, lights) for c in cams]
+    for use_spot in (False, True):
+        kw = dict(_frame_kw(cfg, scene, lights, use_spot),
+                  uniform_dims=REFLECT_DIMS)
+        want = [prog.fn(**a, **kw) for a in args]
+        first = prog(**args[0], **kw)
+        kept = {k: v.clone() for k, v in _reflective_leaves(first).items()}
+        second = prog(**args[1], **kw)
+        _assert_bitwise(_reflective_leaves(first),
+                        _reflective_leaves(want[0]))
+        _assert_bitwise(_reflective_leaves(first), kept)
+        _assert_bitwise(_reflective_leaves(second),
+                        _reflective_leaves(want[1]))
+        for field in first["uniform_grid"]._fields:
+            assert torch.equal(getattr(first["uniform_grid"], field),
+                               getattr(want[0]["uniform_grid"], field))
+        assert not torch.equal(want[0]["image"], want[1]["image"])
+        assert int((want[0]["reflection"]["face_id"] >= 0).sum()) > 1000
+    assert prog.cache_size() == 2
+
+
+def test_reflective_program_matches_ugrt(tiny_cfg, cornell, generic_camera,
+                                         generic_light):
+    """The reflective Program on the CPU against ugrt's jitted
+    render_frame_reflective in windowed mode, Lambert: the bounds of
+    tests/test_torch_reflect.py."""
+    from ugrt.api.renderer import render_frame_reflective as frame_j
+
+    cfg = dataclasses.replace(tiny_cfg, light_grid_mode="windowed")
+    cc = cam.camcoords_from_spec(generic_camera, cfg.fovy_deg, 1.0)
+    lcc = cam.camcoords_from_spec(generic_light, cfg.fovy_deg, 1.0)[None]
+    lp = np.asarray(generic_light.eye, np.float32)
+    arrays = (cornell.vertices, cornell.faces, cornell.mat_index,
+              cornell.materials, cc, lcc, lp)
+    kw = dict(capacity=cfg.pair_capacity(cornell.num_faces), num_lights=1,
+              use_spot=False, uniform_dims=REFLECT_DIMS)
+    want = frame_j(*(np.asarray(a) for a in arrays), cfg=cfg, **kw)
+    got = rapi.render_frame_reflective(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
+        cfg=bridge.render_config(cfg), **kw)
+    assert bool(got["overflow"]) == bool(want["overflow"]) is False
+    img_g, img_w = got["image"].numpy(), np.asarray(want["image"])
+    assert img_g.shape == img_w.shape == (64, 64, 3)
+    assert (img_g != img_w).any(-1).sum() <= 0.001 * 64 * 64
+    f_g = got["reflection"]["face_id"].numpy()
+    f_w = np.asarray(want["reflection"]["face_id"])
+    assert (f_g == f_w).mean() >= 0.999 and (f_g >= 0).sum() > 1000
+    np.testing.assert_array_equal(got["shadowed"].numpy(),
+                                  np.asarray(want["shadowed"]))
 
 
 def test_renderer_one_program_per_static_key(monkeypatch, tiny_cfg,

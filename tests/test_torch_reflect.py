@@ -8,7 +8,14 @@ holds ugrt's (>= 99.5% of face ids agree, t within rtol 1e-4 / atol
 t within rtol 1e-5 where they agree; ugrt's jitted loop may fuse
 multiply-adds, the port does not).  The reflective frame's u8 image may
 differ from ugrt's jitted frame on at most 0.1% of pixels
-(README.md:108-113: knife-edge rays).
+(README.md:108-113: knife-edge rays).  The DDA's edge case
+(ugrt_torch/micro/dda_edge.py: a cell deeper than max_batches * B faces,
+coincident triangles, zero direction components, rays outside the AABB,
+inactive rays) keeps the bound against ugrt's DDA (>= 99.9% of face ids
+equal, t within rtol 1e-5 where they agree) and both overflow.  The
+kernel D1's wrapper on CPU tensors is its plain version, bitwise; the
+plain version on a shuffled half of the rays gives those rays' results
+of the whole run bitwise (what lets D1 run each ray on its own).
 """
 
 import dataclasses
@@ -26,6 +33,8 @@ from ugrt.scene import procedural
 from ugrt.trace import reflect as treflect_j
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as gbuild_t
+from ugrt_torch.kernels import uniform_dda as kdda
+from ugrt_torch.micro import dda_edge
 from ugrt_torch.trace import reflect as treflect_t
 from test_reflect import _brute_force
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -196,3 +205,103 @@ def test_reflective_frame_sees_its_mirror(tiny_cfg, cornell, generic_camera,
     hit = full["reflection"]["face_id"] >= 0
     assert hit.float().mean() > 0.3
     assert (full["color"][~hit] == 0).all() and full["color"][hit].sum() > 0
+
+
+def test_dda_edge_case_matches_ugrt(small_cfg):
+    """ugrt's trace_uniform_dda and the port's on the DDA's edge case: both
+    overflow (one cell holds more than 2 batches of 4), face ids and t
+    within the bounds above, and the axis-aligned rays that reach the
+    coincident pair take its first face (CSR order) in both."""
+    case = dda_edge.dda_edge_case(0)
+    dims, kw = dda_edge.DIMS, dict(max_batches=dda_edge.MAX_BATCHES,
+                                   batch=dda_edge.BATCH)
+    j = {k: jnp.asarray(v) for k, v in case.items()}
+    ug = gbuild_j.build_uniform_grid(j["vertices"], j["faces"], j["lo"],
+                                     j["hi"], grid_dims=dims,
+                                     capacity=dda_edge.CAPACITY)
+    want = treflect_j.trace_uniform_dda(
+        j["vertices"], j["faces"], ug, j["origins"], j["dirs"], j["active"],
+        j["exclude"], j["lo"], j["hi"], dims, small_cfg, **kw)
+    t = {k: _t(v) for k, v in case.items()}
+    grid = gbuild_t.build_uniform_grid(t["vertices"], t["faces"], t["lo"],
+                                       t["hi"], grid_dims=dims,
+                                       capacity=dda_edge.CAPACITY)
+    got = treflect_t.trace_uniform_dda(
+        t["vertices"], t["faces"], grid, t["origins"], t["dirs"],
+        t["active"], t["exclude"], t["lo"], t["hi"], dims,
+        bridge.render_config(small_cfg), **kw)
+    assert bool(got["overflow"]) and bool(want["overflow"])
+    f_w, f_g = np.asarray(want["face_id"]), got["face_id"].numpy()
+    same = f_g == f_w
+    assert same.mean() >= 0.999, f"{(~same).sum()} face ids differ"
+    np.testing.assert_allclose(got["t"].numpy()[same],
+                               np.asarray(want["t"])[same], rtol=1e-5)
+    hits = f_g >= 0
+    assert hits.sum() > 500 and (~case["active"] <= (f_g == -2)).all()
+    first = case["faces"].shape[0] - 12      # the pair, then 10 wall faces
+    down = np.all(case["dirs"][:, :2] == 0, axis=1)
+    on_pair = down & ((f_w == first) | (f_w == first + 1))
+    assert on_pair.sum() > 100 and (f_g[on_pair] == first).all()
+    assert (f_w[on_pair] == first).all()
+
+
+def _edge_kw(cfg):
+    return dict(cfg=bridge.render_config(cfg),
+                max_batches=dda_edge.MAX_BATCHES, eps=1e-4,
+                batch=dda_edge.BATCH, skip_k=6)
+
+
+def test_uniform_dda_on_cpu_is_its_plain_version(small_cfg):
+    """The D1 wrapper on CPU tensors returns its plain version's result
+    bit for bit and counts no launch; ``steps`` is a 0-d int32 tensor;
+    wrong inputs and devices raise instead of falling back."""
+    args = dda_edge.dda_edge_inputs("cpu")
+    kw = _edge_kw(small_cfg)
+    before = kdda.uniform_dda.launches
+    got = kdda.uniform_dda(*args, **kw)
+    want = kdda.uniform_dda_plain(*args, **kw)
+    assert kdda.uniform_dda.launches == before
+    assert torch.equal(got["t"].view(torch.int32),
+                       want["t"].view(torch.int32))
+    for key in ("face_id", "overflow", "steps"):
+        assert torch.equal(got[key], want[key]), key
+    assert got["steps"].dtype == torch.int32 and got["steps"].dim() == 0
+    assert 0 < int(got["steps"]) <= sum(dda_edge.DIMS)
+
+    ftab, grid, origins, dirs, active, excl, lo, hi, dims = args
+    with pytest.raises(ValueError, match="unsupported device"):
+        kdda.uniform_dda(ftab.to("meta"), grid._replace(**{
+            f: getattr(grid, f).to("meta") for f in grid._fields}),
+            *(x.to("meta") for x in (origins, dirs, active, excl, lo, hi)),
+            dims, **kw)
+    with pytest.raises(TypeError):
+        kdda.uniform_dda(ftab, grid, origins.double(), dirs, active, excl,
+                         lo, hi, dims, **kw)
+    with pytest.raises(ValueError):
+        kdda.uniform_dda(ftab[:, :8].contiguous(), grid, origins, dirs,
+                         active, excl, lo, hi, dims, **kw)
+    with pytest.raises(ValueError, match="batch"):
+        kdda.uniform_dda(*args, **dict(kw, batch=0))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kdda.uniform_dda_stats(*args, **kw)
+
+
+def test_dda_rays_are_independent(small_cfg):
+    """A ray's (t, face) depends on that ray alone: the plain version on
+    a shuffled half of the edge case's rays gives those rays' results of
+    the whole run, bit for bit, though it compacts other sets at other
+    steps.  D1 runs each ray in its own thread on this contract."""
+    args = dda_edge.dda_edge_inputs("cpu", seed=1)
+    kw = _edge_kw(small_cfg)
+    full = kdda.uniform_dda_plain(*args, **kw)
+    ftab, grid, origins, dirs, active, excl, lo, hi, dims = args
+    pick = torch.from_numpy(np.random.default_rng(1).permutation(
+        origins.shape[0])[:origins.shape[0] // 2])
+    half = kdda.uniform_dda_plain(
+        ftab, grid, *(x[pick].contiguous() for x in (origins, dirs, active,
+                                                      excl)),
+        lo, hi, dims, **kw)
+    assert torch.equal(half["t"].view(torch.int32),
+                       full["t"][pick].view(torch.int32))
+    assert torch.equal(half["face_id"], full["face_id"][pick])
+    assert int((half["face_id"] >= 0).sum()) > 200

@@ -11,8 +11,10 @@ the kernels' plain PyTorch versions).  Frame 0 shades with Lambert, later
 frames with the spotlight; PPMs (and PNGs) are written by
 ``ugrt_torch.api.io``, byte for byte in ugrt's format.  ``--reflect``
 renders ``render_frame_reflective`` as ugrt's CLI does (aspect 1, the
-light camera's matrices even under ``--no-shadows``).  Plain frames are
-timed by a ``StageTimer``, whose report ends the run.
+light camera's matrices even under ``--no-shadows``): on the card each
+frame replays its captured program (frames 0 and 1 each record one, for
+Lambert and the spotlight), and the frame's line says which.  Plain
+frames are timed by a ``StageTimer``, whose report ends the run.
 """
 
 from __future__ import annotations
@@ -108,7 +110,9 @@ def main(argv=None):
         scene = scenes[min(frame, len(scenes) - 1)]
         renderer.update_vertices(scene.vertices)
         t0 = time.perf_counter()
+        how = ""
         if args.reflect:
+            keys = render_frame_reflective.cache_size()
             cc, lcc = (bridge.camcoords_to_torch(s, cfg.fovy_deg, 1.0,
                                                  renderer.device)
                        for s in (camera_spec, light_spec))
@@ -119,6 +123,12 @@ def main(argv=None):
                                   np.float32),
                 cfg=cfg, capacity=renderer.capacity,
                 num_lights=len(lights), use_spot=frame >= 1)
+            if renderer.device.type != "cuda":
+                how = " (reflective program, eager on the CPU)"
+            elif render_frame_reflective.cache_size() > keys:
+                how = " (reflective program: captured, then replayed)"
+            else:
+                how = " (reflective program: one graph replay)"
         else:
             out = timer.time_stage("frame", renderer.render, camera_spec,
                                    lights, args.light_position)
@@ -131,7 +141,7 @@ def main(argv=None):
         io.write_ppm(name + ".ppm", np.asarray(img), flip=args.flip)
         if args.png:
             io.write_png(name + ".png", img, flip=args.flip)
-        print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device} -> "
+        print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device}{how} -> "
               f"{name}.ppm" + (" (+.png)" if args.png else ""))
 
     print(timer.report())

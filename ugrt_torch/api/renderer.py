@@ -15,8 +15,11 @@ it; ``render_frame`` (``render_frame_device.fn``) is the eager frame.
 ``render_frame_reflective`` (ugrt/api/renderer.py:109-226) adds the
 two-level trace: the plain frame, then a uniform world grid over the
 scene's AABB, each primary hit's mirror ray traced through it
-(``trace.reflect``), the reflection hit shaded by Lambert from the light
-position, and the two colors mixed by ``reflectivity``.
+(``trace.reflect``, the kernel D1 on the card), the reflection hit
+shaded by Lambert from the light position, and the two colors mixed by
+``reflectivity``.  It is one captured program per static key too
+(ugrt's jitted ``render_frame_reflective``); its eager body,
+``render_frame_reflective.fn``, calls the eager ``render_frame``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ugrt_torch.grid import build as gbuild
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
+from ugrt_torch.kernels.uniform_dda import uniform_dda
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
 from ugrt_torch.trace import reflect as treflect
@@ -94,10 +98,12 @@ def render_frame_reflective(vertices, faces, mat_index, materials,
     shadowed, primary, uniform_grid, overflow): ``overflow`` includes the
     uniform grid's pair capacity and a cell deeper than max_batches *
     reflect_batch faces."""
-    base = render_frame_device(vertices, faces, mat_index, materials,
-                               camcoords, light_camcoords, light_position,
-                               cfg=cfg, capacity=capacity,
-                               num_lights=num_lights, use_spot=use_spot)
+    # The eager frame: this body is captured whole, as ugrt's jit inlines
+    # the inner jitted frame (a Program cannot capture inside a capture).
+    base = render_frame(vertices, faces, mat_index, materials, camcoords,
+                        light_camcoords, light_position, cfg=cfg,
+                        capacity=capacity, num_lights=num_lights,
+                        use_spot=use_spot)
     primary = base["primary"]
     lo = vertices.amin(dim=0) - 1e-3            # the padded scene AABB
     hi = vertices.amax(dim=0) + 1e-3
@@ -136,6 +142,18 @@ def render_frame_reflective(vertices, faces, mat_index, materials,
                 uniform_grid=ugrid,
                 overflow=base["overflow"] | ugrid.overflow
                 | refl["overflow"])
+
+
+# ugrt/api/renderer.py:109-111 (its static arguments but the chunk size,
+# which the port does not have); ``render_frame_reflective.fn`` is the
+# eager body above.
+render_frame_reflective = Program(
+    render_frame_reflective,
+    static=("cfg", "capacity", "num_lights", "use_spot", "uniform_dims",
+            "uniform_capacity", "reflectivity", "max_batches",
+            "reflect_batch"),
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep,
+              uniform_dda))
 
 
 def _shade_at_points(refl_primary, origins, shade_cc, light_position,

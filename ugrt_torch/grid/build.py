@@ -184,22 +184,27 @@ def build_spherical_grid(vertices, faces, camcoords, *,
     return _finish(r, cfg, capacity, heavy_threshold)
 
 
+def _filled(values, dtype, device):
+    """A 1-D tensor of host ``values`` made by fills, not a copy from host
+    memory (capturable; see core.program)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in values])
+
+
 def uniform_face_ranges(vertices, faces, aabb_min, aabb_max, grid_x: int,
                         grid_y: int, grid_z: int):
     """World-space uniform-grid binning for reflection rays (ugrt's
     uniform_face_ranges, the intent of the reference's dead UniformGrid,
     uniform_grid.h:11-59): each face's AABB over the scene AABB, cells
-    keyed (gx * grid_y + gy) * grid_z + gz.  Returns dict(gmin, gmax
-    [F, 3] int32, counts [F] int32)."""
+    keyed (gx * grid_y + gy) * grid_z + gz; aabb_min/aabb_max are [3]
+    tensors.  Returns dict(gmin, gmax [F, 3] int32, counts [F] int32)."""
     v = vertices[faces.long()]                         # [F, 3, 3]
     dev = v.device
-    lo = torch.as_tensor(aabb_min, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(aabb_max, dtype=torch.float32, device=dev)
+    lo = aabb_min.to(dtype=torch.float32, device=dev)
+    hi = aabb_max.to(dtype=torch.float32, device=dev)
     extent = hi - lo
-    dims = torch.tensor([grid_x, grid_y, grid_z], dtype=torch.float32,
-                        device=dev)
-    top = torch.tensor([grid_x - 1, grid_y - 1, grid_z - 1],
-                       dtype=torch.int32, device=dev)
+    dims = _filled((grid_x, grid_y, grid_z), torch.float32, dev)
+    top = _filled((grid_x - 1, grid_y - 1, grid_z - 1), torch.int32, dev)
 
     def cell(p):
         c = torch.floor((p - lo) / extent * dims).to(torch.int32)

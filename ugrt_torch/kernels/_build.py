@@ -2,9 +2,9 @@
 
 The sources make two libraries, each with a plain C interface loaded
 with ctypes: ``kernels``, the sweeps K1-K3 of the frame, step and
-training paths, and ``probes``, the probes S1-S3 that only
-``ugrt_torch.micro`` launches, so a renderer's first frame waits for
-nvcc on the sweeps alone.  Each ``.cu`` file of a library compiles
+training paths and the reflection DDA D1, and ``probes``, the probes
+S1-S3 that only ``ugrt_torch.micro`` launches, so a renderer's first
+frame waits for nvcc on the main paths' kernels alone.  Each ``.cu`` file of a library compiles
 with its own nvcc process, all started together, and the objects link
 into one shared library; ``cuda_error.cu`` (``ugrt_cuda_error_string``)
 goes into both.  Each entry point takes device pointers, sizes and the
@@ -50,7 +50,7 @@ NVCC_FLAGS = (
 # Library -> its .cu sources (each also links COMMON).
 LIBRARIES = {
     "kernels": ("primary_sweep.cu", "heavy_primary_sweep.cu",
-                "shadow_sweep.cu"),
+                "shadow_sweep.cu", "uniform_dda.cu"),
     "probes": ("coeff_mt.cu", "tile_pipeline.cu", "heavy_variants.cu"),
 }
 COMMON = ("cuda_error.cu",)
@@ -66,6 +66,9 @@ SIGNATURES = {
                                      _P),
         "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F,
                               _I, _I, _P, _P, _P),
+        "ugrt_uniform_dda": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+                             _P, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

@@ -15,11 +15,12 @@ faces sets ``overflow``.
 
 ugrt chunks the rays (``lax.map``) and runs a ``lax.while_loop`` per
 chunk for the TPU's memory and control flow.  A ray's (t, face) depends
-on that ray alone and the step bound gx + gy + gz is global, so here
-every ray runs in one set that is compacted to the live rays (one host
-read); batches past the first run on the rays whose cell needs them.
-Dead rays never change, so on the card the set is compacted only every
-``COMPACT_EVERY`` steps, which saves host reads and changes nothing.
+on that ray alone and the step bound gx + gy + gz is global, so the port
+traces each ray on its own: on the card the kernel D1
+(``kernels.uniform_dda``, ``csrc/uniform_dda.cu``) runs one thread per
+ray in one launch with no host read, which lets the reflective frame be
+captured (``api.renderer.render_frame_reflective``); on the CPU its
+plain version runs all rays as PyTorch ops compacted to the live ones.
 """
 
 from __future__ import annotations
@@ -29,12 +30,7 @@ import torch
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize
 from ugrt_torch.grid.build import DeviceGrid
-from ugrt_torch.trace.primary import moller_trumbore_t
-
-BIG = 3.0e38
-# DDA steps between compactions of the live set on the card (each is a
-# host read); on the CPU a read costs nothing and every step compacts.
-COMPACT_EVERY = 4
+from ugrt_torch.kernels.uniform_dda import uniform_dda
 
 
 def reflect_directions(primary):
@@ -48,18 +44,12 @@ def reflect_directions(primary):
     return d - 2.0 * dot(d, n)[..., None] * n
 
 
-def _advance(cell, t_max, alive, move, step, t_delta, dims):
-    """One DDA step for the rays in ``move``: the axis of the nearest
-    boundary (the first on ties) moves one cell; a ray leaving the grid
-    dies.  Returns the new (cell, t_max, alive)."""
-    onehot = torch.nn.functional.one_hot(t_max.argmin(-1), 3).to(torch.int32)
-    cell_n = cell + onehot * step
-    t_max_n = t_max + onehot.to(torch.float32) * t_delta
-    out = ((cell_n < 0) | (cell_n >= dims)).any(-1)
-    cell_n = torch.minimum(torch.clamp(cell_n, min=0), dims - 1)
-    cell = torch.where(move[:, None], cell_n, cell)
-    t_max = torch.where(move[:, None], t_max_n, t_max)
-    return cell, t_max, alive & ~(move & out)
+def face_table(vertices, faces):
+    """[F, 9] f32 per-face corner table (v0, e1, e2): one row gather per
+    (ray, face) test."""
+    fv = vertices[faces.long()]
+    return torch.cat([fv[:, 0], fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]],
+                     dim=1)
 
 
 def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
@@ -70,113 +60,18 @@ def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
     """Trace rays through a uniform grid with 3-D DDA.
 
     origins/dirs: [N, 3] float32; active: [N] bool; exclude_face: [N]
-    int32 face to ignore (self-hit).  ``batch`` defaults to
-    cfg.tri_batch.  Returns dict(t [N] (-1: miss), face_id [N] int32
-    (-2: miss), overflow (0-d bool tensor), steps (DDA steps run))."""
-    gx, gy, gz = grid_dims
+    int32 face to ignore (self-hit); aabb_min/aabb_max: [3] f32 tensors.
+    ``batch`` defaults to cfg.tri_batch.  Returns dict(t [N] (-1: miss),
+    face_id [N] int32 (-2: miss), overflow (0-d bool tensor), steps (0-d
+    int32 tensor: DDA steps run))."""
     dev = origins.device
-    f32 = torch.float32
-    lo = torch.as_tensor(aabb_min, dtype=f32, device=dev)
-    hi = torch.as_tensor(aabb_max, dtype=f32, device=dev)
-    dims = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
-    cell_size = (hi - lo) / dims.to(f32)
-    n = origins.shape[0]
-    num_cells = gx * gy * gz
-    cap, num_faces = grid.sorted_faces.shape[0], faces.shape[0]
-    B = batch if batch is not None else cfg.tri_batch
-    lane = torch.arange(B, dtype=torch.int32, device=dev)
-    max_steps = gx + gy + gz
-    compact_every = 1 if dev.type == "cpu" else COMPACT_EVERY
-
-    # Per-face corner table (v0, e1, e2).
-    fv = vertices[faces.long()]
-    ftab = torch.cat([fv[:, 0], fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]],
-                     dim=1)
-
-    # Clip each ray's entry to the AABB (slab test) and find its cell.
-    inv_d = 1.0 / torch.where(dirs.abs() < 1e-20, 1e-20, dirs)
-    t1 = (lo[None] - origins) * inv_d
-    t2 = (hi[None] - origins) * inv_d
-    t_near = torch.minimum(t1, t2).amax(-1)
-    t_far = torch.maximum(t1, t2).amin(-1)
-    t_enter = torch.clamp(t_near, min=0.0) + eps
-    inside = (t_far > t_enter) & active.bool()
-
-    best_t = torch.full((n,), BIG, dtype=f32, device=dev)
-    best_f = torch.full((n,), -2, dtype=torch.int32, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-
-    ids = inside.nonzero().squeeze(1)
-    o, d, inv_d = origins[ids], dirs[ids], inv_d[ids]
-    excl = exclude_face[ids].to(torch.int32)
-    p0 = o + t_enter[ids][:, None] * d
-    cell = torch.minimum(
-        torch.clamp(((p0 - lo[None]) / cell_size[None]).to(torch.int32),
-                    min=0), dims - 1)
-    step = torch.where(d >= 0, 1, -1).to(torch.int32)
-    next_bound = lo[None] + (cell + (step > 0)).to(f32) * cell_size[None]
-    t_max = (next_bound - o) * inv_d
-    t_delta = torch.abs(cell_size[None] * inv_d)
-    alive = torch.ones(ids.shape[0], dtype=torch.bool, device=dev)
-    bt = torch.full((ids.shape[0],), BIG, dtype=f32, device=dev)
-    bf = torch.full((ids.shape[0],), -2, dtype=torch.int32, device=dev)
-
-    def cell_id(c):
-        return torch.clamp((c[:, 0] * gy + c[:, 1]) * gz + c[:, 2], 0,
-                           num_cells - 1).long()
-
-    def test(b, rows, cnt, off, bt, bf):
-        """Batch b of the cell's faces for the rays ``rows`` (a slice or
-        an index); returns their new (bt, bf)."""
-        idx = torch.clamp(off[:, None] + b * B + lane[None], 0, cap - 1)
-        fidx = torch.clamp(grid.sorted_faces[idx.long()], 0, num_faces - 1)
-        live = (lane[None] + b * B) < cnt[:, None]
-        tri = ftab[fidx.long()]                                # [m, B, 9]
-        t = moller_trumbore_t(o[rows][:, None, :] - tri[..., 0:3],
-                              tri[..., 3:6], tri[..., 6:9],
-                              d[rows][:, None, :], cfg, abs_t=False)[:, 0]
-        bad = ~live | (t <= eps) | (fidx == excl[rows][:, None])
-        tmin, k = torch.where(bad, BIG, t).min(dim=-1)
-        upd = alive[rows] & (tmin < bt)
-        return (torch.where(upd, tmin, bt),
-                torch.where(upd, fidx.gather(1, k[:, None])[:, 0], bf))
-
-    it = 0
-    while it < max_steps and ids.numel():
-        # Empty-space skipping: rays in empty cells advance, up to skip_k.
-        for _ in range(skip_k):
-            empty = alive & (grid.cell_count[cell_id(cell)] == 0)
-            cell, t_max, alive = _advance(cell, t_max, alive, empty, step,
-                                          t_delta, dims)
-        t_exit = t_max.amin(-1)
-        cid = cell_id(cell)
-        cnt = torch.where(alive, grid.cell_count[cid], 0)
-        off = grid.cell_offset[cid]
-        overflow |= (cnt > max_batches * B).any()
-        bt, bf = test(0, slice(None), cnt, off, bt, bf)
-        for b in range(1, max_batches):
-            sel = (cnt > b * B).nonzero().squeeze(1)
-            if not sel.numel():
-                break
-            bt[sel], bf[sel] = test(b, sel, cnt[sel], off[sel], bt[sel],
-                                    bf[sel])
-        # DDA visits cells in increasing t, so a ray is done once its best
-        # hit lies before the exit of the current cell.
-        alive = alive & ~(bt <= t_exit + eps)
-        cell, t_max, alive = _advance(cell, t_max, alive, alive, step,
-                                      t_delta, dims)
-        it += 1
-        if it % compact_every == 0 or it == max_steps:
-            best_t[ids], best_f[ids] = bt, bf
-            keep = alive.nonzero().squeeze(1)
-            ids, o, d, excl, cell, t_max, step, t_delta, alive, bt, bf = (
-                x[keep] for x in (ids, o, d, excl, cell, t_max, step,
-                                  t_delta, alive, bt, bf))
-
-    hit = best_t < BIG
-    return dict(t=torch.where(hit, best_t, -1.0),
-                face_id=torch.where(hit, best_f, -2),
-                overflow=overflow, steps=it)
+    return uniform_dda(
+        face_table(vertices, faces), grid, origins, dirs, active.bool(),
+        exclude_face.to(torch.int32),
+        aabb_min.to(dtype=torch.float32, device=dev),
+        aabb_max.to(dtype=torch.float32, device=dev), tuple(grid_dims),
+        cfg=cfg, max_batches=max_batches, eps=eps,
+        batch=batch if batch is not None else cfg.tri_batch, skip_k=skip_k)
 
 
 def reflection_pass(vertices, faces, primary_refined, uniform_grid,
