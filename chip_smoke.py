@@ -63,18 +63,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
     torch.cuda.set_sync_debug_mode("error"): no host sync.  (a) D1
     against its plain version, bitwise (t, face_id, overflow), on the
     1,048,576 reflection rays of the reference-mode frame (recorded from
-    the eager body) and on the DDA's edge case (ugrt_torch/micro/
-    dda_edge.py, which must overflow): CUDA-event ms, the CUDA kernel
-    alone (torch.profiler), host ms per call, plain ms, the (ray, face)
-    tests the rays need against the lane slots D1's warps walk (its
-    counting launch), the DDA steps (D1's, the CPU's count, beside the
-    plain version's on the card), and the bound max(flops / 67 TFLOP/s,
-    bytes / 3.35 TB/s).  The main path: the programs dropped, 4 frames
-    in the CLI's default "reference" mode (frame 1 records Lambert's key,
-    frame 2 the spotlight's): CUDA-event and host ms, overflow (fails),
-    the share of primary hits whose reflection hits a face, the uniform
-    grid's pairs and largest cell, the DDA steps, K1-K3's and D1's
-    launches.  (c) Warm-up + capture seconds per key.  (d) Replays bitwise
+    the eager body), on the same rays in a seeded random order, on the
+    DDA's edge case (ugrt_torch/micro/dda_edge.py, which must overflow)
+    and on that case over a 2^3 grid in batches of 48: CUDA-event ms, the
+    CUDA kernel alone (torch.profiler), host ms per call, plain ms, the
+    (ray, face) tests the rays need against the lane slots D1's warps
+    spend on staged faces (and those a per-ray kernel whose lanes test in
+    lockstep would spend), the distinct cells its warps serve a round
+    (its counting launch), the DDA steps (D1's, the CPU's count, beside
+    the plain version's on the card), the bound max(flops / 67 TFLOP/s,
+    bytes / 3.35 TB/s) and the half-rate floor (flops / 33.5 TFLOP/s:
+    -fmad=false issues each product and sum alone).  The main path: the
+    programs dropped, 4 frames in the CLI's default "reference" mode
+    (frame 1 records Lambert's key, frame 2 the spotlight's): CUDA-event
+    and host ms, overflow (fails), the share of primary hits whose
+    reflection hits a face, the uniform grid's pairs and largest cell,
+    the DDA steps, K1-K3's and D1's launches.  (c) Warm-up + capture
+    seconds per key.  (d) Replays bitwise
     equal to the eager body (image, color, shadowed, reflection t and
     face_id, overflow) in both modes, Lambert and spot, on CAMERA and
     CAMERA_2 in turn, and after Renderer.update_vertices of the last
@@ -853,8 +858,8 @@ def frame_inputs(scene, cfg, camera, light, device):
 
 def dda_check(label, args, kw, expect_overflow):
     """Phase 8a: D1 against its plain version on ``args`` (bitwise t,
-    face_id, overflow), timed, with its needed and walked tests and its
-    bound.  Returns the record."""
+    face_id, overflow), timed, with its needed tests, its lane slots on
+    staged faces and its bound.  Returns the record."""
     import torch
 
     from ugrt_torch.kernels import uniform_dda as kdda
@@ -885,33 +890,44 @@ def dda_check(label, args, kw, expect_overflow):
     stats = kdda.uniform_dda_stats(*args, **kw)
     ftab, grid, origins, dirs, active, excl, lo, hi, _ = args
     n = origins.shape[0]
-    # Inputs read once (sorted_faces up to the grid's pairs), outputs
-    # written once; operations of the needed tests alone.
-    nbyte = (nbytes(ftab, grid.cell_count, grid.cell_offset, origins, dirs,
-                    active, excl, lo, hi) + 4 * int(grid.total_pairs)
-             + 8 * n + 8)
+    # Inputs read once (the face table without its pad columns,
+    # sorted_faces up to the grid's pairs), outputs written once;
+    # operations of the needed tests alone.
+    nbyte = (nbytes(grid.cell_count, grid.cell_offset, origins, dirs,
+                    active, excl, lo, hi) + 36 * ftab.shape[0]
+             + 4 * int(grid.total_pairs) + 8 * n + 8)
     flops = stats["needed"] * FLOPS_D1
     b_ms, b_by = bound(flops, nbyte)
+    half_ms = flops / (PEAK_F32 / 2) * 1e3
     hits = int((want["face_id"] >= 0).sum())
+    slots = stats["staged_lane_slots"]
     say(f"phase 8a: D1 {label} ({n} rays, {int(active.sum())} active, "
         f"{hits} hit; grid {tuple(args[-1])}, {int(grid.total_pairs)} "
-        f"pairs): mismatches {mism}, max |diff| {err}, overflow "
+        f"pairs; batches of {kw['batch']} up to {kw['max_batches']}): "
+        f"mismatches {mism}, max |diff| {err}, overflow "
         f"{bool(got['overflow'])}; steps {int(got['steps'])} (D1, the CPU's "
         f"count) / {int(want['steps'])} (plain on the card, to its last "
         f"compaction); kernel {ms:.4f} ms (its CUDA kernel alone "
         f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f}'} ms,"
         f" host {host:.4f} ms per call), plain "
-        f"{plain_ms:.3f} ms; needed tests {stats['needed']}, walked "
-        f"{stats['walked']} lane slots "
-        f"({stats['walked'] / max(stats['needed'], 1):.2f}x); {flops} flops, "
-        f"{nbyte} bytes: bound {b_ms:.5f} ms by {b_by} "
-        f"({100 * b_ms / ms:.1f}% of the kernel's time)")
+        f"{plain_ms:.3f} ms; needed tests {stats['needed']}, lane slots "
+        f"on staged faces {slots} ({slots / max(stats['needed'], 1):.2f}x; "
+        f"a per-ray kernel in lockstep would spend "
+        f"{stats['lockstep_lane_slots']}); "
+        f"{stats['cells']} cells served in {stats['rounds']} warp rounds "
+        f"({stats['cells'] / max(stats['rounds'], 1):.3f} distinct cells a "
+        f"round); {flops} flops, {nbyte} bytes: bound {b_ms:.5f} ms by "
+        f"{b_by} ({100 * b_ms / ms:.1f}% of the kernel's time), half-rate "
+        f"floor {half_ms:.5f} ms")
     if any(mism.values()) or bool(got["overflow"]) != expect_overflow:
         fail(f"phase 8a: D1 disagrees with its plain version on {label}, "
              f"or its overflow is not {expect_overflow}")
     return dict(ms=ms, kernel_ms=kernel_ms, host_ms=host, plain_ms=plain_ms,
                 max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                needed_tests=stats["needed"], walked_tests=stats["walked"],
+                half_rate_floor_ms=half_ms, needed_tests=stats["needed"],
+                staged_lane_slots=slots,
+                lockstep_lane_slots=stats["lockstep_lane_slots"],
+                cells_per_round=stats["cells"] / max(stats["rounds"], 1),
                 steps=int(got["steps"]))
 
 
@@ -988,11 +1004,25 @@ def reflect_phase(scene, flagship, camera, light, kernels):
         treflect.uniform_dda = kernels["uniform_dda"]
     dda = {"flagship reference": dda_check("flagship reference", *seen[0],
                                            expect_overflow=False)}
+    # The same rays in a seeded random order: a warp's lanes stand in
+    # distinct cells, and its loop over cells runs at its worst.
+    a, k = seen[0]
+    pick = torch.from_numpy(np.random.default_rng(0).permutation(
+        a[2].shape[0])).cuda()
+    dda["flagship shuffled"] = dda_check(
+        "flagship shuffled", (*a[:2], *(x[pick].contiguous() for x in a[2:6]),
+                              *a[6:]), k, expect_overflow=False)
     dda["edge case"] = dda_check(
         "edge case", dda_edge.dda_edge_inputs("cuda"),
         dict(cfg=flagship, max_batches=dda_edge.MAX_BATCHES, eps=1e-4,
              batch=dda_edge.BATCH, skip_k=6), expect_overflow=True)
-    del seen
+    # Batches of 48 (staged as 32 + 16) over cells of up to 73 faces.
+    dda["edge case, batch 48"] = dda_check(
+        "edge case, batch 48", dda_edge.dda_edge_inputs("cuda",
+                                                       dims=(2, 2, 2)),
+        dict(cfg=flagship, max_batches=2, eps=1e-4, batch=48, skip_k=6),
+        expect_overflow=False)
+    del seen, a, k, pick
 
     # The main path: 4 flagship frames, reference mode, through the
     # program (frames 1 and 2 record the Lambert and spot keys).
@@ -2288,7 +2318,10 @@ def main(argv=None):
         "max_abs_err": max(r["max_abs_err"] for r in dda.values()),
         **{k: main_dda[k] for k in ("ms", "kernel_ms", "host_ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "needed_tests", "walked_tests")},
+                                     "half_rate_floor_ms",
+                                     "needed_tests", "staged_lane_slots",
+                                     "lockstep_lane_slots",
+                                     "cells_per_round")},
         "library_ms": None, "library_none": NO_LIBRARY["uniform_dda"],
         "sites": dda})
     kernels += probes

@@ -18,8 +18,9 @@ programs (render_frame_device, render_frame_reflective, render_and_grad)
 replay bitwise what their eager functions compute on the card; train()
 through them stays within rtol 1e-6 of train() with the eager step.  The
 reflection DDA D1 is bitwise equal to its plain version (t, face_id,
-overflow) on the Cornell reflective frame's rays and on the DDA's edge
-case (ugrt_torch/micro/dda_edge.py).
+overflow) on the Cornell reflective frame's rays, in pixel order and
+shuffled, and on the DDA's edge case (ugrt_torch/micro/dda_edge.py),
+also in batches of 48 faces over a coarser grid.
 """
 
 import dataclasses
@@ -314,13 +315,18 @@ def _reflective_inputs(device, camera=CAMERA, cfg=SMALL):
     return args, kw
 
 
-@pytest.mark.parametrize("case", ["cornell", "edge"])
+@pytest.mark.parametrize("case", ["cornell", "edge", "shuffled", "batch-48"])
 def test_uniform_dda_matches_plain_on_card(card, monkeypatch, case):
     """D1 against its plain version on the card, bit for bit (t, face_id,
     overflow): on the inputs that the 128^2 Cornell reflective frame gives
-    it, and on the DDA's edge case (a cell deeper than its batches,
-    coincident faces, zero direction components, rays outside the AABB,
-    inactive rays)."""
+    it (8x4 pixel tiles a warp); on the DDA's edge case (a cell deeper
+    than its batches, coincident faces, zero direction components, rays
+    outside the AABB, inactive rays); on the Cornell rays in a seeded
+    random order (a warp's lanes in up to 32 distinct cells, so that its
+    loop over cells runs at its worst); and in batches of 48 faces (not a
+    multiple of the 32 a warp stages at once) over the edge case on a 2^3
+    grid, whose cells hold up to 73 faces (two batches, staged in chunks
+    of 32 and 16)."""
     from ugrt_torch.api.renderer import render_frame_reflective
     from ugrt_torch.kernels import uniform_dda as kdda
     from ugrt_torch.micro import dda_edge
@@ -330,6 +336,10 @@ def test_uniform_dda_matches_plain_on_card(card, monkeypatch, case):
         args = dda_edge.dda_edge_inputs(card)
         kw = dict(max_batches=dda_edge.MAX_BATCHES, eps=1e-4,
                   batch=dda_edge.BATCH, skip_k=6)
+    elif case == "batch-48":
+        args = dda_edge.dda_edge_inputs(card, dims=(2, 2, 2))
+        kw = dict(max_batches=2, eps=1e-4, batch=48, skip_k=6)
+        assert int(args[1].cell_count.max()) > 64
     else:
         seen = []
 
@@ -342,6 +352,12 @@ def test_uniform_dda_matches_plain_on_card(card, monkeypatch, case):
         render_frame_reflective.fn(*fargs, **fkw)
         (args, kw), = seen
         del kw["cfg"]
+        assert kw["width"] == SMALL.screen_width
+        if case == "shuffled":
+            pick = torch.from_numpy(np.random.default_rng(0).permutation(
+                args[2].shape[0])).to(card)
+            args = (*args[:2], *(x[pick].contiguous() for x in args[2:6]),
+                    *args[6:])
     before = kdda.uniform_dda.launches
     got = kdda.uniform_dda(*args, cfg=SMALL, **kw)
     want = kdda.uniform_dda_plain(*args, cfg=SMALL, **kw)
@@ -352,9 +368,13 @@ def test_uniform_dda_matches_plain_on_card(card, monkeypatch, case):
     for key in ("face_id", "overflow"):
         assert torch.equal(got[key], want[key]), key
     assert bool(got["overflow"]) == (case == "edge")
-    assert int((want["face_id"] >= 0).sum()) > (5000 if case == "cornell"
-                                                 else 500)
+    assert int((want["face_id"] >= 0).sum()) > (500 if "edge" in case
+                                                 or "48" in case else 5000)
     assert 0 < int(got["steps"]) <= sum(args[-1])
+    stats = kdda.uniform_dda_stats(*args, cfg=SMALL, **kw)
+    assert 0 < stats["needed"] <= stats["staged_lane_slots"]
+    assert stats["needed"] <= stats["lockstep_lane_slots"]
+    assert 0 < stats["rounds"] <= stats["cells"]
 
 
 @pytest.mark.parametrize("mode", ["windowed", "reference"])

@@ -254,7 +254,9 @@ def _edge_kw(cfg):
 def test_uniform_dda_on_cpu_is_its_plain_version(small_cfg):
     """The D1 wrapper on CPU tensors returns its plain version's result
     bit for bit and counts no launch; ``steps`` is a 0-d int32 tensor;
-    wrong inputs and devices raise instead of falling back."""
+    wrong inputs and devices raise instead of falling back; the
+    measurement aid runs only on a card; the kernel maps 8x4 pixel tiles
+    only where they cover the rays."""
     args = dda_edge.dda_edge_inputs("cpu")
     kw = _edge_kw(small_cfg)
     before = kdda.uniform_dda.launches
@@ -284,6 +286,36 @@ def test_uniform_dda_on_cpu_is_its_plain_version(small_cfg):
         kdda.uniform_dda(*args, **dict(kw, batch=0))
     with pytest.raises(ValueError, match="CUDA kernel"):
         kdda.uniform_dda_stats(*args, **kw)
+    # The kernel's 8x4 pixel tiles: only where they cover the rays.
+    assert kdda._tile_width(1024 * 1024, 1024) == 1024
+    assert kdda._tile_width(4096, None) == kdda._tile_width(4096, 12) == 0
+    assert kdda._tile_width(64 * 60, 64) == 64
+    assert kdda._tile_width(64 * 62, 64) == 0
+
+
+def test_face_table_pads_ugrt_rows(small_cfg):
+    """The port's face table is ugrt's [F, 9] (v0, e1, e2) rows
+    (ugrt/trace/reflect.py:101-103) bit for bit in its first nine
+    columns, then three zero columns (D1 reads a row as three 16-byte
+    loads); the plain DDA gives the same result, bitwise, on the padded
+    table and on its first nine columns."""
+    case = dda_edge.dda_edge_case(0)
+    fv = jnp.asarray(case["vertices"])[jnp.asarray(case["faces"])]
+    want = np.asarray(jnp.concatenate(
+        [fv[:, 0], fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]], axis=1))
+    args = dda_edge.dda_edge_inputs("cpu")
+    ftab = args[0]
+    assert ftab.shape == (case["faces"].shape[0], kdda.FACE_COLS) == (
+        want.shape[0], 12)
+    np.testing.assert_array_equal(ftab[:, :9].numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert not ftab[:, 9:].any()
+    kw = _edge_kw(small_cfg)
+    padded = kdda.uniform_dda_plain(*args, **kw)
+    nine = kdda.uniform_dda_plain(ftab[:, :9].contiguous(), *args[1:], **kw)
+    for key in ("t", "face_id", "overflow", "steps"):
+        assert torch.equal(padded[key], nine[key]), key
+    assert int((padded["face_id"] >= 0).sum()) > 500
 
 
 def test_dda_rays_are_independent(small_cfg):

@@ -67,8 +67,8 @@ SIGNATURES = {
         "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F,
                               _I, _I, _P, _P, _P),
         "ugrt_uniform_dda": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
-                             _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+                             _P, _P, _P, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

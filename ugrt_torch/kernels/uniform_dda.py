@@ -15,13 +15,18 @@ Returns dict(t [N] (-1: miss), face_id [N] int32 (-2: miss), overflow
 (0-d bool: an alive ray's cell held more than max_batches * batch
 faces), steps (0-d int32: the most DDA steps any ray began)).
 
-The kernel runs one thread per ray, the whole loop in registers, with no
-host read.  The plain version runs every ray in one set of PyTorch ops,
-compacted to the live rays (host reads) every step on the CPU and every
-``COMPACT_EVERY`` steps elsewhere; a ray's result depends on that ray
-alone, so both give the same (t, face_id, overflow).  ``steps`` follows
-the CPU's count in the kernel; the plain version on the card counts to
-its last compaction.
+The kernel runs one thread per ray with no host read; the lanes of a
+warp stage each cell's faces in shared memory together and each tests
+its own ray on them (the source's note says how).  Its face table is
+``trace.reflect.face_table``'s [F, 12] (v0, e1, e2 and 3 pad columns,
+rows of 48 bytes); the plain version reads the first nine columns and
+takes [F, 9] as well.  Given the image ``width`` of rays in row-major
+pixel order, a warp takes an 8x4 pixel tile.  The plain version runs
+every ray in one set of PyTorch ops, compacted to the live rays (host
+reads) every step on the CPU and every ``COMPACT_EVERY`` steps
+elsewhere; a ray's result depends on that ray alone, so both give the
+same (t, face_id, overflow).  ``steps`` follows the CPU's count in the
+kernel; the plain version on the card counts to its last compaction.
 
 ``uniform_dda`` launches the kernel for CUDA tensors and runs
 ``uniform_dda_plain`` only for CPU tensors.
@@ -42,6 +47,8 @@ from ugrt_torch.trace.primary import moller_trumbore_t
 # CPU (each is a host read); on the CPU a read costs nothing and every
 # step compacts.
 COMPACT_EVERY = 4
+# Columns of the kernel's face table: (v0, e1, e2) and 3 of padding.
+FACE_COLS = 12
 
 
 def _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
@@ -49,7 +56,10 @@ def _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
     dev = origins.device
     n = origins.shape[0] if origins.dim() == 2 else None
     gx, gy, gz = grid_dims
-    _build.check_tensor(ftab, "ftab", torch.float32, (None, 9), dev)
+    _build.check_tensor(ftab, "ftab", torch.float32, (None, FACE_COLS),
+                        dev)
+    if dev.type == "cuda" and ftab.data_ptr() % 16:
+        raise ValueError("ftab: rows must start 16-byte aligned")
     _build.check_tensor(grid.cell_count, "cell_count", torch.int32,
                         (gx * gy * gz,), dev)
     _build.check_tensor(grid.cell_offset, "cell_offset", torch.int32,
@@ -70,33 +80,49 @@ def _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
         raise ValueError(f"skip_k must be an int >= 0, got {skip_k!r}")
 
 
+def _tile_width(n, width):
+    """The image width the kernel maps 8x4 pixel tiles with, or 0 (32
+    consecutive rays a warp) when ``width`` is None or its tiles do not
+    cover the n rays exactly."""
+    if width is None or width <= 0 or width % 8 or n % (4 * width):
+        return 0
+    return width
+
+
 def _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-            grid_dims, cfg, max_batches, eps, batch, skip_k, ray_tests):
+            grid_dims, cfg, max_batches, eps, batch, skip_k, width,
+            counts=None):
+    """Launch the kernel; ``counts``: (ray tests [n] i32, warp work
+    [warps, 3] i64) for the counting build."""
     n = origins.shape[0]
     gx, gy, gz = grid_dims
     t = torch.empty((n,), dtype=torch.float32, device=origins.device)
     face = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    # (overflow, most steps), zeroed on the current stream before the
-    # launch.
-    flags = torch.zeros((2,), dtype=torch.int32, device=origins.device)
+    # (overflow, most steps, the persistent grid's tile counter), zeroed
+    # on the current stream before the launch.
+    flags = torch.zeros((3,), dtype=torch.int32, device=origins.device)
+    ray_tests, warp_work = counts if counts is not None else (None, None)
     _build.launch("ugrt_uniform_dda", ftab, ftab.shape[0], grid.cell_count,
                   grid.cell_offset, grid.sorted_faces,
                   grid.sorted_faces.shape[0], origins, dirs, active,
-                  exclude_face, lo, hi, n, gx, gy, gz, batch, max_batches,
-                  skip_k, np.float32(eps), np.float32(cfg.epsilon), t, face,
-                  flags, ray_tests)
+                  exclude_face, lo, hi, n, _tile_width(n, width), gx, gy, gz,
+                  batch, max_batches, skip_k, np.float32(eps),
+                  np.float32(cfg.epsilon), t, face, flags, ray_tests,
+                  warp_work)
     return dict(t=t, face_id=face, overflow=flags[0] != 0, steps=flags[1])
 
 
 def uniform_dda(ftab, grid: DeviceGrid, origins, dirs, active, exclude_face,
                 lo, hi, grid_dims, *, cfg: RenderConfig, max_batches: int,
-                eps: float, batch: int, skip_k: int):
+                eps: float, batch: int, skip_k: int, width: int | None = None):
     """Trace rays through a uniform grid (see the module docstring).
 
-    ftab: [F, 9] f32 per-face (v0, e1, e2); grid: the uniform DeviceGrid
-    (cell_count, cell_offset, sorted_faces); origins/dirs: [N, 3] f32;
-    active: [N] bool; exclude_face: [N] int32 (self-hit); lo/hi: [3] f32
-    grid AABB; grid_dims: (gx, gy, gz)."""
+    ftab: [F, 12] f32 per-face (v0, e1, e2, pad); grid: the uniform
+    DeviceGrid (cell_count, cell_offset, sorted_faces); origins/dirs:
+    [N, 3] f32; active: [N] bool; exclude_face: [N] int32 (self-hit);
+    lo/hi: [3] f32 grid AABB; grid_dims: (gx, gy, gz); width: the image
+    width when the rays are an image's pixels in row-major order (the
+    kernel then gives each warp an 8x4 pixel tile)."""
     _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
            grid_dims, max_batches, batch, skip_k)
     if origins.device.type == "cpu":
@@ -107,7 +133,7 @@ def uniform_dda(ftab, grid: DeviceGrid, origins, dirs, active, exclude_face,
     if origins.device.type != "cuda":
         raise ValueError(f"uniform_dda: unsupported device {origins.device}")
     out = _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-                  grid_dims, cfg, max_batches, eps, batch, skip_k, None)
+                  grid_dims, cfg, max_batches, eps, batch, skip_k, width)
     uniform_dda.launches += 1
     return out
 
@@ -118,26 +144,35 @@ uniform_dda.launches = 0
 def uniform_dda_stats(ftab, grid: DeviceGrid, origins, dirs, active,
                       exclude_face, lo, hi, grid_dims, *, cfg: RenderConfig,
                       max_batches: int, eps: float, batch: int,
-                      skip_k: int):
-    """The kernel's work on these inputs (CUDA tensors only): ``needed``,
-    the (ray, face) tests its rays run, and ``walked``, the lane slots
-    its warps spend on them if a warp's lanes test in lockstep (32 x the
-    most tests of any ray of the warp: rays are in input order, 32 to a
-    warp).  A measurement aid: its launch is no launch of the main
-    path."""
+                      skip_k: int, width: int | None = None):
+    """The kernel's work on these inputs (CUDA tensors only), from its
+    counting build: ``needed``, the (ray, face) tests its rays run;
+    ``staged_lane_slots``, the lane slots its warps spend on staged faces
+    (32 per staged face: the warp waits while the lanes of the face's
+    cell test it); ``cells``, the distinct cells its warps serve, and
+    ``rounds``, the warp rounds that test any face (``cells / rounds``
+    distinct cells a round).  Beside them ``lockstep_lane_slots``, what
+    a kernel of one ray a lane, whose lanes fetch and test their faces
+    in lockstep, would spend on the same tests: 32 x the most tests of
+    any ray of each 32 consecutive rays.  A measurement aid: its launch
+    is no launch of the main path."""
     _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
            grid_dims, max_batches, batch, skip_k)
     if origins.device.type != "cuda":
-        raise ValueError("uniform_dda_stats: the counts are the CUDA "
-                         "kernel's")
+        raise ValueError("uniform_dda_stats: runs the CUDA kernel, and takes "
+                         "CUDA tensors only")
     n = origins.shape[0]
-    tests = torch.zeros((-(-n // 32) * 32,), dtype=torch.int32,
-                        device=origins.device)
+    tests = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    work = torch.zeros((-(-n // 32), 3), dtype=torch.int64,
+                       device=origins.device)
     _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-            grid_dims, cfg, max_batches, eps, batch, skip_k, tests)
-    per_warp = tests.view(-1, 32).amax(dim=1).long()
+            grid_dims, cfg, max_batches, eps, batch, skip_k, width,
+            (tests, work))
+    slots, cells, rounds = (int(x) for x in work.sum(dim=0))
+    per_warp = torch.nn.functional.pad(tests, (0, -n % 32)).view(-1, 32)
     return dict(needed=int(tests.sum(dtype=torch.int64)),
-                walked=int(per_warp.sum()) * 32)
+                staged_lane_slots=slots, cells=cells, rounds=rounds,
+                lockstep_lane_slots=32 * int(per_warp.amax(dim=1).sum()))
 
 
 def _advance(cell, t_max, alive, move, step, t_delta, dims):
@@ -157,10 +192,11 @@ def _advance(cell, t_max, alive, move, step, t_delta, dims):
 def uniform_dda_plain(ftab, grid: DeviceGrid, origins, dirs, active,
                       exclude_face, lo, hi, grid_dims, *, cfg: RenderConfig,
                       max_batches: int, eps: float, batch: int,
-                      skip_k: int):
+                      skip_k: int, width: int | None = None):
     """``uniform_dda`` in PyTorch ops (any device): every ray in one set,
     compacted to the live rays; batches past the first run on the rays
-    whose cell needs them."""
+    whose cell needs them.  ``width`` (the kernel's ray-to-warp map) has
+    no effect here; ``ftab`` may also be [F, 9]."""
     gx, gy, gz = grid_dims
     dev = origins.device
     f32 = torch.float32

@@ -83,11 +83,12 @@ def dda_edge_case(seed: int = 0):
                 exclude=exclude, lo=lo, hi=hi)
 
 
-def dda_edge_inputs(device, seed: int = 0):
+def dda_edge_inputs(device, seed: int = 0, dims: tuple = DIMS):
     """``uniform_dda``'s positional arguments for the edge case on
     ``device``: (ftab, grid, origins, dirs, active, exclude, lo, hi,
-    DIMS); its keywords but ``cfg`` are MAX_BATCHES, BATCH, skip_k 6 and
-    eps 1e-4 (trace_uniform_dda's defaults)."""
+    dims); its keywords but ``cfg`` are MAX_BATCHES, BATCH, skip_k 6 and
+    eps 1e-4 (trace_uniform_dda's defaults).  A coarser grid than DIMS
+    gives deeper cells (2^3: up to 73 faces)."""
     from ugrt_torch.grid.build import build_uniform_grid
     from ugrt_torch.trace.reflect import face_table
 
@@ -95,6 +96,6 @@ def dda_edge_inputs(device, seed: int = 0):
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
          for k, v in case.items()}
     grid = build_uniform_grid(t["vertices"], t["faces"], t["lo"], t["hi"],
-                              grid_dims=DIMS, capacity=CAPACITY)
+                              grid_dims=dims, capacity=CAPACITY)
     return (face_table(t["vertices"], t["faces"]), grid, t["origins"],
-            t["dirs"], t["active"], t["exclude"], t["lo"], t["hi"], DIMS)
+            t["dirs"], t["active"], t["exclude"], t["lo"], t["hi"], dims)

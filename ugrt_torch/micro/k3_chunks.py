@@ -1,8 +1,9 @@
 """The sweep kernels on the card: K1, K2 or K3 timed on the inputs of the
-flagship frames, per chunk size, or the probes S2 and S3 on their
-scripts' workloads, per variant, against another tree's kernel.
+flagship frames, per chunk size, the reflection DDA D1 on the flagship
+reflective frame's rays, or the probes S2 and S3 on their scripts'
+workloads, per variant, against another tree's kernel.
 
-    python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3|s2|s3]
+    python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3|d1|s2|s3]
         [--parent DIR] [--chunks 1 2 4 8] [--out results.json]
         [--inputs saved.pt] [--seed N]
 
@@ -17,17 +18,22 @@ to empty ranges and two-cell blocks), for K3 ``skewed_case`` (one ray
 block whose cells span hundreds of windows next to blocks with empty
 ranges, and the same with every real ray occluded).  S2 (``tile_sweep``)
 and S3 (``heavy_sweep_v1/v2/v3``) take their scripts' workloads
-(``micro.pallas_micro``, ``micro.micro_heavy``) instead.  Then it times
+(``micro.pallas_micro``, ``micro.micro_heavy``) instead.  D1 takes the
+reflection rays of one flagship reflective frame (reference mode, spot,
+ugrt's reflection defaults: 32^3 uniform grid, batches of 32 up to 8),
+in pixel order and in a seeded random order (a warp's lanes in distinct
+cells), each tree given the face table as wide as its kernel reads it
+and the image width where its wrapper takes one.  Then it times
 the kernel on those inputs in fresh processes, one per tree: with
 ``--parent DIR`` (an unpacked checkout of another commit) in the order
 parent, this tree, this tree, parent, so that the two kernels meet the
 card in turns.  A kernel with a ``chunk`` argument is timed at every
 chunk size, S2 at every variant and ``wchunk`` (8, 64), S3 at every
 layout and ``mb``, others once.  Every result is held against that
-tree's plain version on the same inputs (K1, K2, S2, S3 bitwise; K3
-exactly).  Prints one line per site and process, with the device time of
-each CUDA kernel of a call (torch.profiler) and the warp counts of the
-counting builds a tree has (K1, K2, S3), and writes them all to
+tree's plain version on the same inputs (K1, K2, D1, S2, S3 bitwise;
+K3 exactly).  Prints one line per site and process, with the device time
+of each CUDA kernel of a call (torch.profiler) and the warp counts of
+the counting builds a tree has (K1, K2, D1, S3), and writes them all to
 ``--out``.
 """
 
@@ -208,17 +214,11 @@ def skewed_primary_case(device, seed=0):
     return _to(device, tri, rays, w_lo, w_hi)
 
 
-def capture(path, seed, kernel):
-    """Record ``kernel``'s inputs on the flagship frames and save them
-    with its synthetic cases (on the CPU) to ``path``; for a probe, its
-    script's workload."""
-    if kernel in PROBES:
-        mod = importlib.import_module(f"ugrt_torch.micro.{PROBES[kernel]}")
-        sites = {"script": dict(args=list(mod.make_workload("cpu")), kw={})}
-        torch.save(sites, path)
-        return sites
-
-    from ugrt_torch.api.renderer import Renderer
+def flagship_frame(seed):
+    """(scene, the frame bodies' tensor arguments on the card): the
+    flagship 75k-triangle procedural cathedral from ``seed``, bench.py's
+    camera and light (aspect 1)."""
+    from ugrt_torch import bridge
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.scene import procedural
@@ -228,6 +228,33 @@ def capture(path, seed, kernel):
     light = CameraSpec(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
                        up=(0.0, 1.0, 0.0))
     scene = procedural.cathedral(num_faces_target=75000, seed=seed)
+    fovy = RenderConfig().fovy_deg
+    t = bridge.scene_to_torch(scene, "cuda")
+    return scene, (
+        t["vertices"], t["faces"], t["mat_index"], t["materials"],
+        bridge.camcoords_to_torch(camera, fovy, 1.0, "cuda"),
+        bridge.camcoords_to_torch(light, fovy, 1.0, "cuda")[None],
+        bridge.from_numpy(light.eye, "cuda", np.float32))
+
+
+def capture(path, seed, kernel):
+    """Record ``kernel``'s inputs on the flagship frames and save them
+    with its synthetic cases (on the CPU) to ``path``; for a probe, its
+    script's workload."""
+    if kernel in PROBES:
+        mod = importlib.import_module(f"ugrt_torch.micro.{PROBES[kernel]}")
+        sites = {"script": dict(args=list(mod.make_workload("cpu")), kw={})}
+        torch.save(sites, path)
+        return sites
+    if kernel == "d1":
+        sites = capture_dda(seed)
+        torch.save(sites, path)
+        return sites
+
+    from ugrt_torch.api.renderer import render_frame
+    from ugrt_torch.config import RenderConfig
+
+    scene, frame_args = flagship_frame(seed)
     _, attr, trace = KERNELS[kernel]
     tmod = importlib.import_module(f"ugrt_torch.trace.{trace}")
     sweep = getattr(tmod, attr)
@@ -246,8 +273,11 @@ def capture(path, seed, kernel):
         cfg = dataclasses.replace(RenderConfig(), light_grid_mode=mode)
         setattr(tmod, attr, record)
         try:
-            Renderer(scene, cfg, device="cuda").render(
-                camera, [light], light.eye, use_spot=True)
+            # The eager body of Renderer.render's program (a capture
+            # cannot copy its inputs to the host).
+            render_frame(*frame_args, cfg=cfg,
+                         capacity=cfg.pair_capacity(scene.num_faces),
+                         num_lights=1, use_spot=True)
         finally:
             setattr(tmod, attr, sweep)
     if kernel == "k1":
@@ -262,6 +292,83 @@ def capture(path, seed, kernel):
                 print(f"{name}: {gap_items(*site['args'])}", flush=True)
     torch.save(sites, path)
     return sites
+
+
+def capture_dda(seed):
+    """D1's sites: the arguments of its one call in a flagship reflective
+    frame (reference mode, spot), on the CPU, the grid as a dict of its
+    fields, in pixel order ("flagship reference") and shuffled by numpy
+    ``seed`` ("flagship shuffled")."""
+    from ugrt_torch.api.renderer import render_frame_reflective
+    from ugrt_torch.config import RenderConfig
+    from ugrt_torch.trace import reflect as treflect
+
+    scene, frame_args = flagship_frame(seed)
+    cfg = RenderConfig()
+    seen = []
+    dda = treflect.uniform_dda
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return dda(*args, **kw)
+
+    treflect.uniform_dda = record
+    try:
+        render_frame_reflective.fn(
+            *frame_args, cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+            num_lights=1, use_spot=True)
+    finally:
+        treflect.uniform_dda = dda
+    (args, kw), = seen
+    ftab, grid, *rays = (x.cpu() if isinstance(x, torch.Tensor) else x
+                         for x in args[:8])
+    grid = {f: getattr(grid, f).cpu() for f in grid._fields}
+    kw = {k: v for k, v in kw.items() if k != "cfg"}
+    pick = torch.from_numpy(np.random.default_rng(seed).permutation(
+        rays[0].shape[0]))
+    shuffled = [x[pick].contiguous() for x in rays[:4]] + rays[4:]
+    return {name: dict(args=[ftab, grid, *r], dims=tuple(args[8]), kw=kw)
+            for name, r in (("flagship reference", rays),
+                            ("flagship shuffled", shuffled))}
+
+
+def time_dda(path, iters):
+    """Time this process's D1 (whichever tree is on the path) on the saved
+    sites; one record per site."""
+    from ugrt_torch.grid.build import DeviceGrid
+    from ugrt_torch.kernels import uniform_dda as kdda
+    from ugrt_torch.micro._common import card_line, compare, cuda_ms
+
+    cfg = types.SimpleNamespace(epsilon=1e-21)
+    cols = getattr(kdda, "FACE_COLS", 9)
+    wide = "width" in inspect.signature(kdda.uniform_dda).parameters
+    records = []
+    for name, site in torch.load(path).items():
+        ftab, grid, *rays = site["args"]
+        args = [ftab[:, :cols].contiguous().cuda(),
+                DeviceGrid(**{f: v.cuda() for f, v in grid.items()}),
+                *(x.cuda() for x in rays), site["dims"]]
+        kw = dict(site["kw"], cfg=cfg)
+        if not wide:
+            kw.pop("width", None)
+        want = kdda.uniform_dda_plain(*args, **kw)
+
+        def run():
+            return kdda.uniform_dda(*args, **kw)
+
+        got = run()
+        keys = ("t", "face_id", "overflow")
+        mism, _ = compare(tuple(got[k] for k in keys),
+                          tuple(want[k] for k in keys))
+        rec = dict(site=name, kernel="d1", tree=os.getcwd(),
+                   card=card_line(), hits=int((want["face_id"] >= 0).sum()),
+                   mismatches={"wrapper": mism},
+                   ms={"wrapper": cuda_ms(run, iters)},
+                   device_ms={"wrapper": device_ms(run)},
+                   stats={"wrapper": kdda.uniform_dda_stats(*args, **kw)})
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    return records
 
 
 def gap_items(tri, rays, w_lo, w_hi):
@@ -370,7 +477,7 @@ def time_sites(path, kernel, chunks, iters):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=sorted({*KERNELS, *PROBES}),
+    ap.add_argument("--kernel", choices=sorted({*KERNELS, *PROBES, "d1"}),
                     default="k3")
     ap.add_argument("--parent", help="root of another tree to time beside "
                     "this one")
@@ -389,7 +496,10 @@ def main(argv=None):
     inputs = str(Path(args.inputs or f"_archive/{args.kernel}_inputs.pt")
                  .resolve())
     if args.time_only:
-        time_sites(inputs, args.kernel, args.chunks, args.iters)
+        if args.kernel == "d1":
+            time_dda(inputs, args.iters)
+        else:
+            time_sites(inputs, args.kernel, args.chunks, args.iters)
         return 0
 
     here = Path(__file__).resolve().parents[2]

@@ -18,7 +18,8 @@ chunk for the TPU's memory and control flow.  A ray's (t, face) depends
 on that ray alone and the step bound gx + gy + gz is global, so the port
 traces each ray on its own: on the card the kernel D1
 (``kernels.uniform_dda``, ``csrc/uniform_dda.cu``) runs one thread per
-ray in one launch with no host read, which lets the reflective frame be
+ray, the lanes of a warp staging each cell's faces together, in one
+launch with no host read, which lets the reflective frame be
 captured (``api.renderer.render_frame_reflective``); on the CPU its
 plain version runs all rays as PyTorch ops compacted to the live ones.
 """
@@ -45,25 +46,28 @@ def reflect_directions(primary):
 
 
 def face_table(vertices, faces):
-    """[F, 9] f32 per-face corner table (v0, e1, e2): one row gather per
-    (ray, face) test."""
+    """[F, 12] f32 per-face corner table (v0, e1, e2, then 3 zeros): one
+    row gather per (ray, face) test, a row three aligned 16-byte loads in
+    D1.  Its first nine columns are ugrt's [F, 9] table."""
     fv = vertices[faces.long()]
-    return torch.cat([fv[:, 0], fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]],
-                     dim=1)
+    return torch.cat([fv[:, 0], fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0],
+                      torch.zeros_like(fv[:, 0])], dim=1)
 
 
 def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
                       active, exclude_face, aabb_min, aabb_max,
                       grid_dims, cfg: RenderConfig, *,
                       max_batches: int = 4, eps: float = 1e-4,
-                      batch: int | None = None, skip_k: int = 6):
+                      batch: int | None = None, skip_k: int = 6,
+                      width: int | None = None):
     """Trace rays through a uniform grid with 3-D DDA.
 
     origins/dirs: [N, 3] float32; active: [N] bool; exclude_face: [N]
     int32 face to ignore (self-hit); aabb_min/aabb_max: [3] f32 tensors.
-    ``batch`` defaults to cfg.tri_batch.  Returns dict(t [N] (-1: miss),
-    face_id [N] int32 (-2: miss), overflow (0-d bool tensor), steps (0-d
-    int32 tensor: DDA steps run))."""
+    ``batch`` defaults to cfg.tri_batch; ``width``: the image width when
+    the rays are an image's pixels in row-major order.  Returns dict(t
+    [N] (-1: miss), face_id [N] int32 (-2: miss), overflow (0-d bool
+    tensor), steps (0-d int32 tensor: DDA steps run))."""
     dev = origins.device
     return uniform_dda(
         face_table(vertices, faces), grid, origins, dirs, active.bool(),
@@ -71,7 +75,8 @@ def trace_uniform_dda(vertices, faces, grid: DeviceGrid, origins, dirs,
         aabb_min.to(dtype=torch.float32, device=dev),
         aabb_max.to(dtype=torch.float32, device=dev), tuple(grid_dims),
         cfg=cfg, max_batches=max_batches, eps=eps,
-        batch=batch if batch is not None else cfg.tri_batch, skip_k=skip_k)
+        batch=batch if batch is not None else cfg.tri_batch, skip_k=skip_k,
+        width=width)
 
 
 def reflection_pass(vertices, faces, primary_refined, uniform_grid,
@@ -93,7 +98,8 @@ def reflection_pass(vertices, faces, primary_refined, uniform_grid,
         ray_dir=d, normal=primary_refined["normal"].reshape(n, 3))))
     res = trace_uniform_dda(vertices, faces, uniform_grid, origins, rdir,
                             face >= 0, face, aabb_min, aabb_max, grid_dims,
-                            cfg, max_batches=max_batches, batch=batch)
+                            cfg, max_batches=max_batches, batch=batch,
+                            width=W)
     return dict(t=res["t"].reshape(H, W), face_id=res["face_id"].reshape(H, W),
                 ray_dir=rdir.reshape(H, W, 3), origin=origins.reshape(H, W, 3),
                 overflow=res["overflow"], steps=res["steps"])
