@@ -95,13 +95,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
     card: the single triangle at 64^2 recovers halved materials, its
     loss below 0.2x the first in 30 steps.
 10. Sharding and host IO.  (a) An NCCL process group of one rank on the
-    card (FileStore): dist.mesh.sharded_render at the flagship in
-    windowed and reference mode, each image bitwise equal to
-    render_color; sharded_train_step on phase 6's workload against
+    card (FileStore), dist.mesh's frame and step as captured programs
+    (their collectives inside the graph).  The main path: sharded_render
+    at the flagship in windowed and reference mode on CAMERA, then
+    CAMERA_2 (the first call records the key, the second replays it),
+    and sharded_train_step on phase 6's workload on a zero, then a
+    seeded target; K1-K3's launches on it.  Each replay bitwise its
+    eager body (.fn): image and overflow; loss, both gradients and
+    overflow.  Each image bitwise render_color's; each step against
     render_and_grad (loss rtol 1e-5, gradients within 1e-6 * max|g|, or
-    bitwise); overflow False; 3 steady sharded steps against 3 bare ones
-    (CUDA events), K1-K3's launches on the sharded path, and the NCCL
-    kernels' launches and time in one profiled sharded step.  (b) The
+    bitwise); overflow False.  Eager body, replay, bare replay
+    (render_and_grad, render_frame_device), in turns: CUDA-event and
+    host ms, K1-K3's launches credited to the replays; the NCCL kernels
+    and the busy share of one profiled replayed step.  (b) The
     strips of worlds 2 and 4 on the one card (render_color's bx0 / n_bx
     with no group, reference mode): face_id, t and the image side by side
     bitwise equal to the single-device frame; K1-K3 launches per strip.
@@ -140,14 +146,19 @@ With --dist, under ``python -m torch.distributed.run --standalone
 --nproc_per_node=N chip_smoke.py --dist`` on a host with N cards, it
 runs instead the sharded path with one rank per card, the NCCL group
 started without device_id (dist.mesh.make_mesh must bind each rank to
-cuda:LOCAL_RANK): the flagship sharded images in windowed, reference
-and extent mode bitwise equal to each card's render_color and to rank
-0's; the sharded step against render_and_grad (loss rtol 1e-5,
-gradients within 1e-6 * max|g|, every rank's equal to rank 0's); steady
-frame and step ms against one card's, in turns; the NCCL kernels of one
-profiled step; train(use_mesh=True) 3 steps and a resume to 5 against
-the same runs on one card (losses rtol 1e-5, parameters equal on every
-rank, rank 0 alone checkpointing).  Rank 0 prints, last the "ok" line.
+cuda:LOCAL_RANK), through dist.mesh's captured programs: the flagship
+sharded images in windowed, reference and extent mode, two cameras in
+turn, bitwise equal to each card's render_color, to the eager body and
+to rank 0's; the sharded step on two targets against render_and_grad
+(loss rtol 1e-5, gradients within 1e-6 * max|g|, every rank's equal to
+rank 0's) and bitwise its eager body (the words that differ and the
+largest relative difference are printed); eager body, replay and
+bare replay ms in turns for the windowed frame and the step; the NCCL
+kernels and busy share of one profiled replayed step;
+train(use_mesh=True) 3 steps and a resume to 5 against the same runs on
+one card (losses rtol 1e-5, parameters equal on every rank, rank 0
+alone checkpointing); host ms per step of train(use_mesh=True) against
+train() on one card, in turns.  Rank 0 prints, last the "ok" line.
 
 Imports no JAX and nothing of ugrt.  The scenes are procedural and made
 from --seed.
@@ -184,6 +195,9 @@ CORNELL_CAMERA = dict(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
                       up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
 CORNELL_LIGHT = dict(eye=(0.1, 0.85, 0.4), look_at=(0.0, -1.0, 0.3),
                      up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+# render_color's tensor arguments, in order (dist.mesh's programs).
+FRAME_KEYS = ("vertices", "materials", "faces", "mat_index", "camcoords",
+              "light_camcoords", "light_position")
 # The 128^2 Cornell frame of phase 4 (tests/conftest.py's cameras).
 GENERIC_CAMERA = dict(eye=(0.123, 0.071, 2.531), look_at=(-0.037, 0.011, 0.0),
                       up=(0.02, 1.0, 0.013), near=0.1, far=100.0)
@@ -1280,17 +1294,33 @@ def train_phase(scene, flagship, camera, light, kernels):
 
 
 def mesh_phase(scene, flagship, camera, light, kernels):
-    """Phase 10a: the sharded path on an NCCL group of one rank.  Returns
-    K1-K3's launches over its sharded renders and steps."""
+    """Phase 10a: the sharded path on an NCCL group of one rank, its
+    frame and step captured programs (dist.mesh).  Returns K1-K3's
+    launches on that path."""
     import tempfile
 
+    import numpy as np
     import torch
     import torch.distributed as dist
 
+    from ugrt_torch.api.renderer import render_frame_device
+    from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.diff.render_grad import render_and_grad, render_color
     from ugrt_torch.dist import mesh as dmesh
 
     cap = flagship.pair_capacity(scene.num_faces)
+    modes = ("windowed", "reference")
+    kws = {m: dict(cfg=dataclasses.replace(flagship, light_grid_mode=m),
+                   capacity=cap, num_lights=1, use_spot=True) for m in modes}
+    cams = (camera, CameraSpec(**CAMERA_2))
+    frames = {m: [[step_inputs(scene, kws[m]["cfg"], c, light, "cuda")[k]
+                   for k in FRAME_KEYS] for c in cams] for m in modes}
+    rng = np.random.default_rng(0)
+    zero = torch.zeros((flagship.screen_height, flagship.screen_width, 3),
+                       dtype=torch.float32, device="cuda")
+    targets = (zero, torch.from_numpy(rng.uniform(0.0, 0.3, tuple(
+        zero.shape)).astype(np.float32)).cuda())
+    sf, skw = frames["windowed"][0], kws["windowed"]
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group(
             "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
@@ -1300,98 +1330,149 @@ def mesh_phase(scene, flagship, camera, light, kernels):
             say(f"phase 10a: NCCL group: rank {mesh.rank} of "
                 f"{mesh.world_size} on {mesh.device}, backend "
                 f"{dist.get_backend(mesh.group)}")
+            renders = {m: dmesh.sharded_render(mesh, **kws[m])
+                       for m in modes}
+            step = dmesh.sharded_train_step(mesh, **skw)
+
+            # The main path: each program's key recorded on the first
+            # input, then replayed on the second.
             for k in kernels.values():
                 k.launches = 0
-            for mode in ("windowed", "reference"):
-                cfg = dataclasses.replace(flagship, light_grid_mode=mode)
-                args = step_inputs(scene, cfg, camera, light, "cuda")
-                frame = [args[k] for k in (
-                    "vertices", "materials", "faces", "mat_index",
-                    "camcoords", "light_camcoords", "light_position")]
-                kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
-                want, ovf_w = render_color(*frame, **kw)
-                got, ovf_g = dmesh.sharded_render(mesh, **kw)(*frame)
-                torch.cuda.synchronize()
-                mism = int((got.view(torch.int32)
-                            != want.view(torch.int32)).sum())
-                say(f"phase 10a: {mode}: sharded image {tuple(got.shape)} "
-                    f"vs render_color: {mism} words differ; overflow "
-                    f"{bool(ovf_g)} (single {bool(ovf_w)})")
-                if mism or bool(ovf_g) or bool(ovf_w):
-                    fail(f"phase 10a: {mode}: the sharded image differs or "
-                         "overflowed")
-
-            cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
-            kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
-            args = step_inputs(scene, cfg, camera, light, "cuda")
-            step = dmesh.sharded_train_step(mesh, **kw)
-            positional = [args[k] for k in (
-                "vertices", "materials", "faces", "mat_index", "camcoords",
-                "light_camcoords", "light_position", "target")]
-
-            def sharded():
-                return step(*positional)
-
-            def bare():
-                return render_and_grad(**args, **kw)
-
-            loss, gv, gm, ovf = sharded()
-            ref = bare()
-            loss_s, loss_b = float(loss), float(ref["loss"])
-            errs, same = {}, True
-            for name, g, w in (("grad_vertices", gv, ref["grad_vertices"]),
-                               ("grad_materials", gm,
-                                ref["grad_materials"])):
-                errs[name] = float((g.double() - w.double()).abs().max()
-                                   / w.abs().max())
-                same = same and torch.equal(g, w)
-            say(f"phase 10a: sharded step: loss {loss_s!r} vs "
-                f"render_and_grad {loss_b!r}; max |diff| / max|g| {errs}; "
-                f"gradients {'bitwise equal' if same else 'not bitwise'}; "
-                f"overflow {bool(ovf)}")
-            if (abs(loss_s - loss_b) > 1e-5 * abs(loss_b)
-                    or max(errs.values()) > 1e-6 or bool(ovf)):
-                fail("phase 10a: the sharded step disagrees with the bare "
-                     "step")
+            images = {m: [renders[m](*f) for f in frames[m]] for m in modes}
+            steps = [step(*sf, t) for t in targets]
+            torch.cuda.synchronize()
             launches = {name: k.launches for name, k in kernels.items()}
-            say(f"phase 10a: K1-K3 launches on the sharded path (2 renders, "
-                f"1 step) {launches}")
+            say(f"phase 10a: K1-K3 launches on the sharded path (2 modes x 2 "
+                f"cameras of frames, 2 targets of steps; each key's warm-up "
+                f"and capture, then replays) {launches}; capture s "
+                + ", ".join(f"{m} frame {renders[m].capture_seconds()}"
+                            for m in modes)
+                + f", step {step.capture_seconds()}")
             if min(launches.values()) <= 0:
                 fail("phase 10a: a kernel of the sharded path was never "
                      "launched")
-            ms = {}
-            for name, fn in (("bare", bare), ("sharded", sharded),
-                             ("sharded", sharded), ("bare", bare)):
-                ms.setdefault(name, []).append(cuda_ms(fn, 3))
-            say(f"phase 10a: steady step ms (CUDA events, 3 steps, bare / "
-                f"sharded / sharded / bare): bare {ms['bare']}, sharded "
-                f"{ms['sharded']}")
-            nccl_profile(sharded)
+
+            for m in modes:
+                for ci, (f, got) in enumerate(zip(frames[m], images[m])):
+                    eager = renders[m].fn(*f)
+                    single = render_color(*f, **kws[m])
+                    names = ("image", "overflow")
+                    diff = bitwise_diffs(dict(zip(names, got)),
+                                         dict(zip(names, eager)))
+                    d_single = bitwise_diffs(dict(zip(names, got)),
+                                             dict(zip(names, single)))
+                    say(f"phase 10a: {m} camera {ci + 1}: replayed sharded "
+                        f"image {tuple(got[0].shape)} vs its eager body, "
+                        f"elements differing {diff}; vs render_color "
+                        f"{d_single}; overflow {bool(got[1])}")
+                    if (any(diff.values()) or any(d_single.values())
+                            or bool(got[1])):
+                        fail(f"phase 10a: {m}: the replayed sharded image "
+                             "differs from eager or render_color, or "
+                             "overflowed")
+                if torch.equal(images[m][0][0], images[m][1][0]):
+                    fail("phase 10a: the two cameras gave the same image")
+
+            names = ("loss", "grad_vertices", "grad_materials", "overflow")
+            for ti, (t, got) in enumerate(zip(targets, steps)):
+                got = dict(zip(names, got))
+                diff = bitwise_diffs(got, dict(zip(names, step.fn(*sf, t))))
+                ref = render_and_grad(*sf, t, **skw)
+                loss_s, loss_b = float(got["loss"]), float(ref["loss"])
+                errs, same = {}, True
+                for name in ("grad_vertices", "grad_materials"):
+                    g, w = got[name], ref[name]
+                    errs[name] = float((g.double() - w.double()).abs().max()
+                                       / w.abs().max())
+                    same = same and torch.equal(g, w)
+                say(f"phase 10a: target {ti + 1}: replayed sharded step vs "
+                    f"its eager body, elements differing {diff}; loss "
+                    f"{loss_s!r} vs render_and_grad {loss_b!r}; max |diff| "
+                    f"/ max|g| {errs}; gradients "
+                    f"{'bitwise equal' if same else 'not bitwise'}; overflow "
+                    f"{bool(got['overflow'])}")
+                if (any(diff.values())
+                        or abs(loss_s - loss_b) > 1e-5 * abs(loss_b)
+                        or max(errs.values()) > 1e-6
+                        or bool(got["overflow"])):
+                    fail("phase 10a: the replayed sharded step differs from "
+                         "its eager body or from the bare step")
+            if torch.equal(steps[0][0], steps[1][0]):
+                fail("phase 10a: the two targets gave the same loss")
+
+            # Eager body, replay, the bare replay, in turns.
+            cred_all = dict.fromkeys(kernels, 0)
+            fi = frame_inputs(scene, skw["cfg"], camera, light, "cuda")
+            for label, eager, graphed, bare, timed in (
+                    ("sharded step (bare: render_and_grad)",
+                     lambda: step.fn(*sf, targets[0]),
+                     lambda: step(*sf, targets[0]),
+                     lambda: render_and_grad(*sf, targets[0], **skw), 4),
+                    ("sharded windowed frame (bare: render_frame_device)",
+                     lambda: renders["windowed"].fn(*sf),
+                     lambda: renders["windowed"](*sf),
+                     lambda: render_frame_device(*fi, **skw), 3)):
+                ev, host, cred = in_turns(eager, graphed, kernels, warm=1,
+                                          timed=timed, bare=bare)
+                for name, n in cred.items():
+                    cred_all[name] += n
+                say(f"phase 10a: {label}: ms (CUDA events / host) eager "
+                    f"{ev['eager']} / {host['eager']}; graphed "
+                    f"{ev['graphed']} / {host['graphed']}; bare "
+                    f"{ev['bare']} / {host['bare']}; means eager "
+                    f"{np.mean(ev['eager']):.3f}, graphed "
+                    f"{np.mean(ev['graphed']):.3f}, bare "
+                    f"{np.mean(ev['bare']):.3f}")
+            say(f"phase 10a: K1-K3 launches credited to the sharded replays "
+                f"timed {cred_all}")
+            if min(cred_all.values()) <= 0:
+                fail("phase 10a: a sharded replay credited no launch")
+            nccl_profile(lambda: step(*sf, targets[0]),
+                         label="phase 10a (replay)")
+            for prog in (*renders.values(), step):
+                prog.clear()
         finally:
             dist.destroy_process_group()
     return launches
 
 
 def nccl_profile(fn, label="phase 10a", show=True):
-    """One call of fn() under torch.profiler: the NCCL collectives (host
-    ops and the device time under them) and the NCCL kernels, with their
-    launches (printed where ``show``; every rank of a group profiles)."""
+    """One call of fn() under torch.profiler, after one unrecorded call
+    (the profiler starts at another moment on each rank, and a
+    collective of the first call would wait for the last rank): the NCCL
+    collectives (host ops and the device time under them) and the NCCL
+    kernels, with their launches, and the device-busy share (sum of CUDA
+    kernel time / host ms; printed where ``show``; every rank of a group
+    profiles).  A replay runs no host op: its collectives show as
+    kernels only."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type.name == "CUDA"]
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    events = recorded[0]
+    # The profiler's own step span is a device-side event too: not work.
+    dev = [e for e in events if e.device_type.name == "CUDA"
+           and not e.key.startswith("ProfilerStep")]
     ops = [e for e in events if e.device_type.name != "CUDA"
            and "nccl" in e.key.lower()]
     kernels = [e for e in dev if "nccl" in e.key.lower()]
     if not show:
         return
-    say(f"{label}: one profiled sharded step: NCCL ops "
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    say(f"{label}: one profiled sharded step: {wall_ms:.3f} ms host "
+        f"(profiled), device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%); NCCL ops "
         + ("; ".join(f"{e.key} x{e.count} host {e.cpu_time_total / 1e3:.3f}"
                      f" ms, device {e.device_time_total / 1e3:.4f} ms"
                      for e in ops) or "none")
@@ -1399,8 +1480,8 @@ def nccl_profile(fn, label="phase 10a", show=True):
         + ("; ".join(f"{e.key[:60]} x{e.count} "
                      f"{e.self_device_time_total / 1e3:.4f} ms"
                      for e in kernels) or "none launched")
-        + f" (of {sum(e.self_device_time_total for e in dev) / 1e3:.3f} ms "
-          f"device time, {sum(e.count for e in dev)} launches)")
+        + f" (of {busy_ms:.3f} ms device time, "
+          f"{sum(e.count for e in dev)} launches)")
 
 
 def strip_phase(scene, flagship, camera, light, kernels):
@@ -1586,19 +1667,23 @@ def frame_leaves(out):
                 face_id=out["primary"]["face_id"], overflow=out["overflow"])
 
 
-def in_turns(fn_eager, fn_graphed, counted, warm=1, timed=3):
-    """Eager, graphed, graphed, eager: per block ``warm`` untimed calls,
-    then ``timed`` calls, each timed alone (CUDA events and host clock,
-    synchronised).  Returns ({name: [CUDA-event ms]}, {name: [host
-    ms]}, K1-K3's launches over the graphed blocks, each block's read
-    from counts set to 0 just before it)."""
+def in_turns(fn_eager, fn_graphed, counted, warm=1, timed=3, bare=None):
+    """Eager, graphed, graphed, eager (with ``bare``, a yardstick:
+    eager, graphed, bare, bare, graphed, eager): per block ``warm``
+    untimed calls, then ``timed`` calls, each timed alone (CUDA events
+    and host clock, synchronised).  Returns ({name: [CUDA-event ms]},
+    {name: [host ms]}, K1-K3's launches over the graphed blocks, each
+    block's read from counts set to 0 just before it)."""
     import torch
 
-    ev = {"eager": [], "graphed": []}
-    host = {"eager": [], "graphed": []}
+    order = [("eager", fn_eager), ("graphed", fn_graphed)]
+    if bare is not None:
+        order.append(("bare", bare))
+    order += order[::-1]
+    ev = {name: [] for name, _ in order}
+    host = {name: [] for name, _ in order}
     credited = {name: 0 for name in counted}
-    for name, fn in (("eager", fn_eager), ("graphed", fn_graphed),
-                     ("graphed", fn_graphed), ("eager", fn_eager)):
+    for name, fn in order:
         for k in counted.values():
             k.launches = 0
         for _ in range(warm):
@@ -1887,6 +1972,7 @@ def dist_main(args):
 
     from ugrt_torch.api import checkpoint
     from ugrt_torch.api import train as tmod
+    from ugrt_torch.api.renderer import render_frame_device
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
     from ugrt_torch.diff.render_grad import render_and_grad, render_color
@@ -1950,12 +2036,12 @@ def dist_main(args):
         flagship = RenderConfig()
         scene = procedural.cathedral(num_faces_target=75000, seed=args.seed)
         cap = flagship.pair_capacity(scene.num_faces)
-        frame_keys = ("vertices", "materials", "faces", "mat_index",
-                      "camcoords", "light_camcoords", "light_position")
+        cams = (camera, CameraSpec(**CAMERA_2))
         kernels = {"primary_sweep": k1.primary_sweep,
                    "heavy_primary_sweep": k2.heavy_primary_sweep,
                    "shadow_sweep": k3.shadow_sweep}
         launches = dict.fromkeys(kernels, 0)
+        credited = dict.fromkeys(kernels, 0)
 
         def on_sharded_path(fn):
             """fn(), with K1-K3's launches in it added to ``launches``."""
@@ -1966,80 +2052,125 @@ def dist_main(args):
                 launches[name] += k.launches
             return out
 
+        def words(a, b):
+            """Elements whose bits differ between a and b."""
+            if a.dtype.is_floating_point:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            return int((a != b).sum())
+
+        def turns(label, eager, graphed, bare, timed):
+            """Eager body, replay, the bare replay, in turns; K1-K3's
+            launches credited to the replays."""
+            ev, host, cred = in_turns(eager, graphed, kernels, warm=1,
+                                      timed=timed, bare=bare)
+            for name, c in cred.items():
+                credited[name] += c
+            w = worst(*ev["graphed"])
+            say0(f"dist: {label}: ms (CUDA events / host, rank 0) eager "
+                 f"{ev['eager']} / {host['eager']}; graphed {ev['graphed']} "
+                 f"/ {host['graphed']} (slowest rank {w}); bare {ev['bare']}"
+                 f" / {host['bare']}; means eager {np.mean(ev['eager']):.3f},"
+                 f" graphed {np.mean(ev['graphed']):.3f}, bare "
+                 f"{np.mean(ev['bare']):.3f}")
+
+        programs = []
         for mode in ("windowed", "reference", "extent"):
             cfg = dataclasses.replace(flagship, light_grid_mode=mode)
             kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
-            inputs = step_inputs(scene, cfg, camera, light, dev)
-            frame = [inputs[k] for k in frame_keys]
+            frames = [[step_inputs(scene, cfg, c, light, dev)[k]
+                       for k in FRAME_KEYS] for c in cams]
             render = dmesh.sharded_render(mesh, **kw)
-            want, ovf_w = render_color(*frame, **kw)
-            got, ovf_g = on_sharded_path(lambda: render(*frame))
-            mism = int((got.view(torch.int32)
-                        != want.view(torch.int32)).sum())
-            w_mism, w_rank0, w_ovf = worst(
-                mism, differs_from_rank0(got), bool(ovf_g) != bool(ovf_w))
-            say0(f"dist: {mode}: {n}-rank sharded {tuple(got.shape)} image vs "
-                 f"each card's render_color: at most {int(w_mism)} words "
-                 f"differ, {int(w_rank0)} from rank 0's; overflow "
-                 f"{bool(ovf_g)} (single {bool(ovf_w)})")
-            if w_mism or w_rank0 or w_ovf or tuple(got.shape) != (
-                    cfg.screen_height, cfg.screen_width, 3):
-                fail(f"dist: {mode}: the sharded image differs")
+            programs.append(render)
+            # The first camera records the key, the second replays it.
+            outs = [on_sharded_path(lambda f=f: render(*f)) for f in frames]
+            for ci, (f, (got, ovf_g)) in enumerate(zip(frames, outs)):
+                img_e, ovf_e = render.fn(*f)
+                want, ovf_w = render_color(*f, **kw)
+                w_mism, w_eager, w_rank0, w_ovf = worst(
+                    words(got, want), words(got, img_e) + words(ovf_g, ovf_e),
+                    differs_from_rank0(got), bool(ovf_g) or bool(ovf_w))
+                say0(f"dist: {mode} camera {ci + 1}: {n}-rank replayed "
+                     f"sharded {tuple(got.shape)} image: at most "
+                     f"{int(w_mism)} words differ from each card's "
+                     f"render_color, {int(w_eager)} elements from its eager "
+                     f"body, {int(w_rank0)} words from rank 0's; overflow "
+                     f"{bool(w_ovf)}")
+                if w_mism or w_eager or w_rank0 or w_ovf or tuple(
+                        got.shape) != (cfg.screen_height, cfg.screen_width,
+                                       3):
+                    fail(f"dist: {mode}: the replayed sharded image differs")
+            if torch.equal(outs[0][0], outs[1][0]):
+                fail(f"dist: {mode}: the two cameras gave the same image")
             if mode == "windowed":
-                ms = {}
-                for name, fn in (("single", lambda: render_color(
-                        *frame, **kw)), ("sharded", lambda: render(*frame)),
-                                 ("sharded", lambda: render(*frame)),
-                                 ("single", lambda: render_color(
-                                     *frame, **kw))):
-                    ms.setdefault(name, []).append(cuda_ms(fn, 3))
-                w = worst(*ms["sharded"])
-                say0(f"dist: windowed frame ms (CUDA events, 3 frames, "
-                     f"single / sharded / sharded / single, rank 0): single "
-                     f"{ms['single']}, sharded {ms['sharded']} (slowest "
-                     f"rank {w})")
+                fi = frame_inputs(scene, cfg, camera, light, dev)
+                turns("sharded windowed frame (bare: render_frame_device)",
+                      lambda: render.fn(*frames[0]),
+                      lambda: render(*frames[0]),
+                      lambda: render_frame_device(*fi, **kw), 3)
 
         cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
         kw = dict(cfg=cfg, capacity=cap, num_lights=1, use_spot=True)
         inputs = step_inputs(scene, cfg, camera, light, dev)
+        sf = [inputs[k] for k in FRAME_KEYS]
+        targets = (inputs["target"], torch.from_numpy(
+            np.random.default_rng(0).uniform(0.0, 0.3, tuple(
+                inputs["target"].shape)).astype(np.float32)).to(dev))
         step = dmesh.sharded_train_step(mesh, **kw)
-        positional = [inputs[k] for k in (*frame_keys, "target")]
+        programs.append(step)
+        names = ("loss", "grad_vertices", "grad_materials", "overflow")
+        outs = [on_sharded_path(lambda t=t: step(*sf, t)) for t in targets]
+        for ti, (t, out) in enumerate(zip(targets, outs)):
+            got = dict(zip(names, out))
+            eager = dict(zip(names, step.fn(*sf, t)))
+            ref = render_and_grad(*sf, t, **kw)
 
-        def sharded():
-            return step(*positional)
+            def rel(a, b):
+                """max |a - b| / max |b|."""
+                return float((a.double() - b.double()).abs().max()
+                             / b.double().abs().max())
 
-        def bare():
-            return render_and_grad(**inputs, **kw)
-
-        loss, gv, gm, ovf = on_sharded_path(sharded)
-        ref = bare()
-        errs = [float((g.double() - r.double()).abs().max() / r.abs().max())
-                for g, r in ((gv, ref["grad_vertices"]),
-                             (gm, ref["grad_materials"]))]
-        loss_err = abs(float(loss) - float(ref["loss"])) / float(ref["loss"])
-        w = worst(loss_err, *errs, bool(ovf), differs_from_rank0(loss),
-                  differs_from_rank0(gv), differs_from_rank0(gm))
-        say0(f"dist: sharded step: loss {float(loss)!r} vs render_and_grad "
-             f"{float(ref['loss'])!r}; worst rank: loss rel {w[0]:.3e}, "
-             f"grad max|diff|/max|g| vertices {w[1]:.3e}, materials "
-             f"{w[2]:.3e}; overflow {bool(w[3])}; words differing from rank "
-             f"0's: loss {int(w[4])}, gradients {int(w[5])}, {int(w[6])}")
-        if w[0] > 1e-5 or max(w[1:3]) > 1e-6 or any(w[3:]):
-            fail("dist: the sharded step disagrees with the bare step")
-        ms = {}
-        for name, fn in (("bare", bare), ("sharded", sharded),
-                         ("sharded", sharded), ("bare", bare)):
-            ms.setdefault(name, []).append(cuda_ms(fn, 3))
-        w = worst(*ms["sharded"])
-        say0(f"dist: steady step ms (CUDA events, 3 steps, bare / sharded / "
-             f"sharded / bare, rank 0): bare {ms['bare']}, sharded "
-             f"{ms['sharded']} (slowest rank {w})")
-        nccl_profile(sharded, label="dist", show=rank0)
-        w = worst(*(-v for v in launches.values()))
-        say0(f"dist: K1-K3 launches on rank 0's sharded path (3 renders, "
-             f"1 step) {launches}")
+            w = worst(rel(got["loss"], ref["loss"]),
+                      rel(got["grad_vertices"], ref["grad_vertices"]),
+                      rel(got["grad_materials"], ref["grad_materials"]),
+                      bool(got["overflow"]),
+                      differs_from_rank0(got["loss"]),
+                      differs_from_rank0(got["grad_vertices"]),
+                      differs_from_rank0(got["grad_materials"]),
+                      words(got["overflow"], eager["overflow"]),
+                      *(words(got[k], eager[k]) for k in names[:3]),
+                      *(rel(got[k], eager[k]) for k in names[:3]))
+            say0(f"dist: target {ti + 1}: replayed sharded step: loss "
+                 f"{float(got['loss'])!r} vs render_and_grad "
+                 f"{float(ref['loss'])!r}; worst rank: loss rel {w[0]:.3e}, "
+                 f"grad max|diff|/max|g| vertices {w[1]:.3e}, materials "
+                 f"{w[2]:.3e}; overflow {bool(w[3])}; words differing from "
+                 f"rank 0's: loss {int(w[4])}, gradients {int(w[5])}, "
+                 f"{int(w[6])}; against its eager body: overflow "
+                 f"{int(w[7])}, words differing loss {int(w[8])}, gradients "
+                 f"{int(w[9])}, {int(w[10])}, largest relative difference "
+                 f"{w[11]:.3e}, {w[12]:.3e}, {w[13]:.3e}")
+            if (w[0] > 1e-5 or max(w[1:3]) > 1e-6 or any(w[3:8])
+                    or any(w[8:11])):
+                fail("dist: the replayed sharded step disagrees with its "
+                     "eager body, with the bare step, with rank 0 or in "
+                     "its overflow")
+        if torch.equal(outs[0][0], outs[1][0]):
+            fail("dist: the two targets gave the same loss")
+        turns("sharded step (bare: render_and_grad)",
+              lambda: step.fn(*sf, targets[0]),
+              lambda: step(*sf, targets[0]),
+              lambda: render_and_grad(*sf, targets[0], **kw), 4)
+        nccl_profile(lambda: step(*sf, targets[0]), label="dist (replay)",
+                     show=rank0)
+        w = worst(*(-v for v in launches.values()),
+                  *(-v for v in credited.values()))
+        say0(f"dist: K1-K3 launches on rank 0's sharded path (3 modes x 2 "
+             f"cameras of frames, 2 targets of steps) {launches}; credited "
+             f"to its timed replays {credited}")
         if max(w) >= 0:
             fail("dist: a kernel of the sharded path was never launched")
+        for prog in programs:
+            prog.clear()
 
         # train(use_mesh=True): 3 steps, then a resume to 5, a checkpoint
         # every 2 steps, against the same two runs on one card.
@@ -2092,6 +2223,38 @@ def dist_main(args):
         if w[0] > 1e-5 or any(w[1:]):
             fail("dist: train(use_mesh=True) disagrees with one card, with "
                  "rank 0, or in its checkpoints")
+
+        def train_ms(use_mesh):
+            """Host ms of train()'s steps 1-4 of 6 (step 0 records the
+            step's key), each from its step's start to the next one's
+            (a step ends in its host read; the last step, whose interval
+            would take in the program's release, is not timed)."""
+            marks = []
+
+            def marked(fn):
+                def call(*a, **k):
+                    marks.append(time.perf_counter())
+                    return fn(*a, **k)
+                return call
+
+            make = dmesh.sharded_train_step
+            with mock.patch.object(tmod, "render_and_grad",
+                                   marked(tmod.render_and_grad)), \
+                    mock.patch.object(dmesh, "sharded_train_step",
+                                      lambda *a, **k: marked(make(*a, **k))):
+                tmod.train(scene, [camera], light, light.eye, [target], cfg,
+                           tmod.TrainConfig(steps=6, use_mesh=use_mesh),
+                           verbose=False, device=dev)
+            return [(b - a) * 1e3 for a, b in zip(marks[1:-1], marks[2:])]
+
+        step_ms = {True: [], False: []}
+        for use_mesh in (True, False, False, True):
+            step_ms[use_mesh] += train_ms(use_mesh)
+        w = worst(np.mean(step_ms[True]))
+        say0(f"dist: train() ms per step (steps 1-4, host; mesh / one card "
+             f"/ one card / mesh, rank 0): use_mesh {step_ms[True]} (mean "
+             f"{np.mean(step_ms[True]):.3f}, slowest rank {w[0]:.3f}); one "
+             f"card {step_ms[False]} (mean {np.mean(step_ms[False]):.3f})")
         if rank0:
             import shutil
 

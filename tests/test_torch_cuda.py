@@ -635,6 +635,58 @@ def test_sharded_step_nccl_world_one(card, tmp_path):
         assert float((got - w).abs().max()) <= 1e-6 * float(w.abs().max())
 
 
+def test_sharded_programs_replay_eager_nccl_world_one(card, tmp_path):
+    """An NCCL group of one rank: the sharded frame's and step's Programs
+    (their collectives inside the graph) replay bitwise their eager
+    bodies (.fn), two cameras and two targets in turn, one key each."""
+    import torch.distributed as dist
+
+    from ugrt_torch import bridge
+    from ugrt_torch.dist import mesh as dmesh
+
+    scene = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(SMALL, light_grid_mode="windowed")
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    frames = [_frame_tensors(scene, cfg, "cuda")]
+    frames.append(list(frames[0]))
+    frames[1][4] = bridge.camcoords_to_torch(INSIDE_BOX, cfg.fovy_deg, 1.0,
+                                             "cuda")
+    rng = np.random.default_rng(0)
+    targets = [torch.from_numpy(rng.uniform(0.0, 0.3, (128, 128, 3)).astype(
+        np.float32)).cuda() for _ in range(2)]
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = dmesh.make_mesh()
+        render = dmesh.sharded_render(mesh, **kw)
+        step = dmesh.sharded_train_step(mesh, **kw)
+        images = []
+        for frame in frames:
+            got, want = render(*frame), render.fn(*frame)
+            for g, w, key in zip(got, want, ("image", "overflow")):
+                _bitwise(g, w, key)
+            assert not bool(got[1])
+            images.append(got[0])
+        losses = []
+        for target in targets:
+            got = step(*frames[0], target)
+            want = step.fn(*frames[0], target)
+            for g, w, key in zip(got, want, ("loss", "grad_vertices",
+                                             "grad_materials", "overflow")):
+                _bitwise(g, w, key)
+            assert float(got[2].abs().sum()) > 0
+            losses.append(float(got[0]))
+        assert render.cache_size() == step.cache_size() == 1
+        render.clear()
+        step.clear()
+    finally:
+        dist.destroy_process_group()
+    assert not torch.equal(images[0], images[1])
+    assert losses[0] != losses[1]
+
+
 def test_build_packets_on_card_equals_cpu(card):
     """build_packets on the card equals the CPU on 1M cells with hot cells
     and sentinels (tests/test_packets.py's mix at the flagship size)."""
@@ -773,6 +825,20 @@ def test_program_refuses_host_read_at_capture(card):
         return x * x.sum().item()
 
     prog = Program(body, static=())
+    with pytest.raises(RuntimeError):
+        prog(torch.ones(4, device=card))
+    assert prog.cache_size() == 0
+
+
+def test_program_refuses_host_read_in_thread_local_mode(card):
+    """The sharded programs' capture mode (thread_local, dist.mesh) still
+    refuses a host read on the capturing thread, and the call raises."""
+    from ugrt_torch.core.program import Program
+
+    def body(x):
+        return x * x.sum().item()
+
+    prog = Program(body, static=(), capture_error_mode="thread_local")
     with pytest.raises(RuntimeError):
         prog(torch.ones(4, device=card))
     assert prog.cache_size() == 0

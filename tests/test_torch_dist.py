@@ -19,7 +19,10 @@ Tolerances:
   rtol 1e-4, atol 1e-6 (tests/test_dist.py:80-84);
 - train(use_mesh=True) against use_mesh=False: losses rtol 1e-5 (the
   sharded loss sums the strips' sums, not torch.mean's order),
-  materials atol 1e-6.
+  materials atol 1e-6;
+- the sharded Programs against their eager bodies (``.fn``): bitwise,
+  on two inputs in turn (two cameras, two targets) and one of another
+  shape, which adds the Program's second key.
 """
 
 import dataclasses
@@ -51,6 +54,12 @@ MODES = ("reference", "windowed", "extent")
 WORLDS = (2, 4)
 TIMEOUT_S = 300          # every rank, every wait
 TRAIN_STEPS = (3, 5)     # the first run, then its resume
+# A second camera for the Programs' second input (test_torch_program.py's).
+OTHER_CAMERA = cam.CameraSpec(eye=(0.3, -0.1, 2.2), look_at=(0.0, 0.05, 0.0),
+                              up=(0.0, 1.0, 0.02), near=0.1, far=100.0)
+PROGRAM_RESULTS = {"render": ("image", "overflow"),
+                   "step": ("loss", "grad_vertices", "grad_materials",
+                            "overflow")}
 
 
 def _frame_arrays(cfg, scene, camera, light):
@@ -139,6 +148,25 @@ def runs(tmp_path_factory, small_cfg, tiny_cfg, cornell, generic_camera,
     arrays.update({f"tri/{k}": getattr(sc, k) for k in (
         "vertices", "materials", "faces", "mat_index")})
     arrays["tri/target"] = tri_target
+    # The Programs: the first inputs, a second camera or target, then
+    # the triangle's geometry (another shape: a second key).
+    arrays["small/camcoords_2"] = cam.camcoords_from_spec(
+        OTHER_CAMERA, small_cfg.fovy_deg, 1.0)
+    arrays["tiny/target_2"] = np.random.default_rng(0).uniform(
+        0.0, 0.3, tiny["target"].shape).astype(np.float32)
+    tri = {k: f"tri/{k}" for k in ("vertices", "materials", "faces",
+                                    "mat_index")}
+    windowed = dataclasses.replace(small_cfg, light_grid_mode="windowed")
+    tasks.append(dict(name="program_render", key="program_render",
+                      inputs="small", cfg=_cfg_fields(windowed),
+                      capacity=windowed.pair_capacity(cornell.num_faces),
+                      use_spot=True, variants=[
+                          {}, {"camcoords": "small/camcoords_2"}, tri]))
+    tasks.append(dict(name="program_step", key="program_step",
+                      inputs="tiny", cfg=_cfg_fields(tiny_cfg),
+                      capacity=tiny_cfg.pair_capacity(cornell.num_faces),
+                      use_spot=True, variants=[
+                          {}, {"target": "tiny/target_2"}, tri]))
     out = {}
     for world in WORLDS:
         d = tmp_path_factory.mktemp(f"world{world}")
@@ -235,6 +263,50 @@ def test_sharded_train_step_matches_ugrt(runs, ugrt_step, world):
     np.testing.assert_allclose(r["step/grad_materials"], np.asarray(gm),
                                rtol=1e-4, atol=1e-6)
     assert np.abs(r["step/grad_materials"]).max() > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["render", "step"])
+def test_sharded_program_equals_eager_body(runs, world, name):
+    """Each rank's Program call bitwise its eager body's (.fn), on every
+    input in turn, and every rank's equal to rank 0's; the two inputs of
+    one shape give different results (the Program reads its new
+    inputs)."""
+    results = runs[0][world]
+    key = f"program_{name}"
+    for r in results:
+        for i in range(3):
+            for res in PROGRAM_RESULTS[name]:
+                got = r[f"{key}/{i}/program/{res}"]
+                want = r[f"{key}/{i}/eager/{res}"]
+                assert got.dtype == want.dtype and got.shape == want.shape
+                np.testing.assert_array_equal(
+                    got.view(np.int32) if got.dtype == np.float32 else got,
+                    want.view(np.int32) if want.dtype == np.float32
+                    else want, err_msg=f"input {i}: {res}")
+    for i in range(3):
+        for res in PROGRAM_RESULTS[name]:
+            _ranks_agree(results, f"{key}/{i}/program/{res}")
+    r = results[0]
+    first = PROGRAM_RESULTS[name][0]
+    assert not np.array_equal(r[f"{key}/0/program/{first}"],
+                              r[f"{key}/1/program/{first}"])
+    assert not any(r[f"{key}/{i}/program/overflow"] for i in range(3))
+    if name == "render":
+        assert r[f"{key}/0/program/image"].shape == (128, 128, 3)
+    else:
+        assert np.abs(r[f"{key}/0/program/grad_materials"]).max() > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_programs_one_key_per_shape(runs, world):
+    """A sharded Program holds one key per input shape: the second
+    camera or target reuses the first key, the triangle's geometry adds
+    a second, on every rank."""
+    for r in runs[0][world]:
+        for name in PROGRAM_RESULTS:
+            assert [int(r[f"program_{name}/{i}/keys"])
+                    for i in range(3)] == [1, 1, 2], name
 
 
 def test_train_use_mesh_matches_single_device(runs, tiny_cfg, tmp_path):

@@ -1,6 +1,7 @@
 """ugrt_torch's captured programs (core.program): the frame
-``render_frame_device``, the reflective frame ``render_frame_reflective``
-and the step ``render_and_grad`` on the CPU.
+``render_frame_device``, the reflective frame ``render_frame_reflective``,
+the step ``render_and_grad`` and the sharded frame and step
+(``dist.mesh.sharded_render``, ``sharded_train_step``) on the CPU.
 
 Two kinds of test:
 - The capture-safety guard.  A CUDA graph records stream work only: a
@@ -11,7 +12,9 @@ Two kinds of test:
   ``TorchFunctionMode`` and a ``TorchDispatchMode`` (which also sees the
   backward's ops), and any such call fails the test with its line.  The
   CPU branches of the sweeps and of the reflection DDA D1 are exempt:
-  their plain versions stand in for one kernel launch each.
+  their plain versions stand in for one kernel launch each.  The sharded
+  bodies run on a gloo process group of one rank, so that their
+  collectives run too (with no group they return at once).
 - ``Program`` on the CPU: the same input binding and output cloning as
   on the card, with an eager call in place of the replay; the frames
   and steps bitwise equal to the eager functions', and held to ugrt's
@@ -40,6 +43,7 @@ from ugrt_torch import bridge
 from ugrt_torch.api import renderer as rapi
 from ugrt_torch.core.program import Program
 from ugrt_torch.diff import render_grad as rg_t
+from ugrt_torch.dist import mesh as dmesh
 from ugrt_torch.scene import model, procedural
 from ugrt_torch.trace import primary as tprimary
 from ugrt_torch.trace import reflect as treflect
@@ -294,6 +298,95 @@ def test_step_is_capture_safe(guard, tiny_cfg, scene, use_spot, num_lights):
             **case.t, target=torch.from_numpy(case.target), **case.kw_t)
     assert guard.found == []
     assert float(out["loss"]) > 0
+
+
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """This process as a gloo process group of one rank (a FileStore
+    under tmp_path) and its Mesh; the group is destroyed at teardown."""
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        yield dmesh.make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_args(cfg, target=True):
+    """The sharded bodies' tensor arguments: the Cornell box from
+    OTHER_CAMERA with LIGHT, and a seeded target."""
+    scene = procedural.cornell_box(subdiv=2)
+    a = _frame_args(cfg, scene, bridge.camera_spec(OTHER_CAMERA),
+                    [bridge.camera_spec(LIGHT)])
+    if target:
+        a["target"] = torch.from_numpy(np.random.default_rng(0).uniform(
+            0.0, 0.3, (cfg.screen_height, cfg.screen_width, 3)).astype(
+                np.float32))
+    return a, _frame_kw(cfg, scene, [LIGHT], True)
+
+
+@pytest.mark.parametrize("mode", ["windowed", "reference", "extent"])
+def test_sharded_render_is_capture_safe(guard, gloo_mesh, tiny_cfg, mode):
+    """sharded_render's body (the strip, the window or extents reduced
+    over the group, the gather, the overflow vote) reads nothing on the
+    host and makes no tensor from host values."""
+    cfg = bridge.render_config(dataclasses.replace(tiny_cfg,
+                                                   light_grid_mode=mode))
+    args, kw = _sharded_args(cfg, target=False)
+    render = dmesh.sharded_render(gloo_mesh, **kw)
+    assert isinstance(render, Program)
+    assert render.capture_error_mode == "thread_local"
+    with guard:
+        image, overflow = render.fn(**args)
+    assert guard.found == []
+    assert image.shape == (64, 64, 3) and not bool(overflow)
+
+
+@pytest.mark.parametrize("mode", ["windowed", "reference", "extent"])
+def test_sharded_step_is_capture_safe(guard, gloo_mesh, tiny_cfg, mode):
+    """sharded_train_step's body, forward, backward and the reductions of
+    loss, gradients and overflow, reads nothing on the host and makes no
+    tensor from host values."""
+    cfg = bridge.render_config(dataclasses.replace(tiny_cfg,
+                                                   light_grid_mode=mode))
+    args, kw = _sharded_args(cfg)
+    step = dmesh.sharded_train_step(gloo_mesh, **kw)
+    assert isinstance(step, Program)
+    assert step.capture_error_mode == "thread_local"
+    with guard:
+        loss, grad_v, grad_m, overflow = step.fn(**args)
+    assert guard.found == []
+    assert float(loss) > 0 and not bool(overflow)
+    assert float(grad_m.abs().sum()) > 0
+
+
+def test_guard_sees_a_host_tensor_in_a_sharded_body(guard, gloo_mesh,
+                                                    tiny_cfg, monkeypatch):
+    """A torch.tensor planted beside the sharded step's collectives is
+    caught, and those collectives ran on the group."""
+    import torch.distributed as dist
+
+    calls = []
+    reduce = dist.all_reduce
+
+    def planted(tensor, *a, **k):
+        calls.append(tensor.shape)
+        torch.tensor(1.0)
+        return reduce(tensor, *a, **k)
+
+    monkeypatch.setattr(dist, "all_reduce", planted)
+    cfg = bridge.render_config(dataclasses.replace(
+        tiny_cfg, light_grid_mode="windowed"))
+    args, kw = _sharded_args(cfg)
+    with guard:
+        dmesh.sharded_train_step(gloo_mesh, **kw).fn(**args)
+    # The window's four bounds, loss, both gradients, overflow.
+    assert len(calls) == 8
+    assert len(guard.found) == 8
+    assert all(f.startswith("torch.tensor at ") for f in guard.found)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@
 
 Joins the group through a FileStore in DIR (no TCP port), reads the
 tasks from DIR/spec.json and their arrays from DIR/inputs.npz, runs them
-through ``ugrt_torch.dist.mesh`` and ``ugrt_torch.api.train`` on CPU
-tensors, and writes its results to DIR/rank<RANK>.npz.  It imports only
+through ``ugrt_torch.dist.mesh`` (its Programs, and for the program
+tasks their eager bodies beside them) and ``ugrt_torch.api.train`` on
+CPU tensors, and writes its results to DIR/rank<RANK>.npz.  It imports only
 torch, numpy and ugrt_torch (``ugrt_torch`` must be on PYTHONPATH), never
 tests/conftest.py, which imports JAX, and holds torch at one thread.
 """
@@ -40,6 +41,9 @@ def run_task(task, arrays, mesh, out):
     if task["name"] == "train":
         train_runs(task, arrays, cfg, out)
         return
+    if task["name"] in PROGRAMS:
+        program_runs(task, arrays, mesh, cfg, out)
+        return
     a = {k: torch.from_numpy(arrays[f"{task['inputs']}/{k}"])
          for k in (*FRAME_KEYS, "target") if f"{task['inputs']}/{k}" in arrays}
     kw = dict(cfg=cfg, capacity=task["capacity"], num_lights=1,
@@ -56,6 +60,34 @@ def run_task(task, arrays, mesh, out):
         for name, x in (("loss", loss), ("grad_vertices", gv),
                         ("grad_materials", gm), ("overflow", overflow)):
             out[f"{key}/{name}"] = x.numpy()
+
+
+# The sharded entry points' Programs: (maker, tensor arguments, results).
+PROGRAMS = {
+    "program_render": (dmesh.sharded_render, FRAME_KEYS,
+                       ("image", "overflow")),
+    "program_step": (dmesh.sharded_train_step, (*FRAME_KEYS, "target"),
+                     ("loss", "grad_vertices", "grad_materials",
+                      "overflow")),
+}
+
+
+def program_runs(task, arrays, mesh, cfg, out):
+    """One Program of dist.mesh against its eager body (.fn), input by
+    input: task["variants"] each replace some of the inputs' arrays by
+    others (key -> array name).  Writes both results and the Program's
+    key count after each input."""
+    make, names, results = PROGRAMS[task["name"]]
+    prog = make(mesh, cfg=cfg, capacity=task["capacity"], num_lights=1,
+                use_spot=task["use_spot"])
+    for i, variant in enumerate(task["variants"]):
+        args = [torch.from_numpy(arrays[variant.get(
+            k, f"{task['inputs']}/{k}")]) for k in names]
+        got, want = prog(*args), prog.fn(*args)
+        for name, g, w in zip(results, got, want):
+            out[f"{task['key']}/{i}/program/{name}"] = g.numpy()
+            out[f"{task['key']}/{i}/eager/{name}"] = w.numpy()
+        out[f"{task['key']}/{i}/keys"] = np.asarray(prog.cache_size())
 
 
 def train_runs(task, arrays, cfg, out):

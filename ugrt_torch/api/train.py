@@ -10,9 +10,10 @@ every frame of ``camera_specs`` replays the same CUDA graph (the frames
 share their shapes), and Adam runs eagerly after it, as ugrt's optax
 update runs outside its jit.  ``use_mesh`` shards each step's image over
 the ranks of the default process group (``dist.mesh.sharded_train_step``,
-eager: its collectives are not captured): every rank calls ``train()``,
-as under ``torchrun``, renders its strip of tile columns and takes the
-gradients summed over the group.
+a captured program too, its collectives inside the graph): every rank
+calls ``train()``, as under ``torchrun``, renders its strip of tile
+columns and takes the gradients summed over the group.  The checkpoint
+barrier and the step's one host read stay outside the program.
 """
 
 from __future__ import annotations

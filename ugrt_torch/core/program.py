@@ -25,6 +25,13 @@ to eager.  On the CPU the same input binding and output cloning run, and
 the "replay" is an eager call of ``fn`` on the buffers.  ``Program.fn``
 is the eager function (the counterpart of ``jax.disable_jit``).
 
+Capture error mode.  ``capture_error_mode`` is ``torch.cuda.graph``'s:
+"global" (the default) refuses a call that could sync, made from any
+thread while the capture runs; "thread_local" refuses it only on the
+capturing thread.  A body with collectives takes "thread_local"
+(``dist.mesh``): NCCL's watchdog thread queries its events during the
+capture.  A host read in the body itself raises in either mode.
+
 Kernel launch counts.  A replay runs the kernels that the capture
 recorded without running their Python wrappers, so ``counters`` (objects
 with an int ``launches``, the kernel wrappers) are credited with each
@@ -48,10 +55,11 @@ class Program:
     key; see the module docstring."""
 
     def __init__(self, fn: Callable, static: Sequence[str],
-                 counters: Sequence = ()):
+                 counters: Sequence = (), capture_error_mode: str = "global"):
         self.fn = fn
         self.static = tuple(static)
         self.counters = tuple(counters)
+        self.capture_error_mode = capture_error_mode
         self._signature = inspect.signature(fn)
         self._cache: dict = {}
         functools.update_wrapper(self, fn)
@@ -72,7 +80,8 @@ class Program:
                      for n, t in tensors.items()))
         entry = self._cache.get(key)
         if entry is None:
-            entry = _Capture(self.fn, statics, tensors, self.counters)
+            entry = _Capture(self.fn, statics, tensors, self.counters,
+                             self.capture_error_mode)
             self._cache[key] = entry
         return entry(tensors)
 
@@ -93,10 +102,11 @@ class _Capture:
     """One key of a Program: its input buffers and, on the card, its
     graph and the graph's outputs."""
 
-    def __init__(self, fn, statics, example, counters):
+    def __init__(self, fn, statics, example, counters, error_mode):
         self.fn = fn
         self.statics = statics
         self.counters = counters
+        self.error_mode = error_mode
         self.graph = None
         self.capture_s = 0.0
         device = next(iter(example.values())).device
@@ -121,7 +131,8 @@ class _Capture:
             torch.cuda.current_stream(device).wait_stream(side)
             before = [c.launches for c in self.counters]
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode=self.error_mode):
                 self.outputs = self._run()
             # The wrappers counted launches that they only recorded: each
             # replay makes them.

@@ -23,9 +23,22 @@ sharded ``out_specs`` -> ``all_gather_into_tensor``.  The collectives
 run on the tensors' own device (NCCL on the card, gloo on the CPU) and
 order themselves against the current stream: no host sync is added.
 
+``sharded_render`` and ``sharded_train_step`` return ``core.program``
+Programs, as ugrt's return one jitted ``shard_map`` program each
+(mesh.py:130, :208): on the card each rank records its strip, the
+collectives between the kernels included, as one CUDA graph per input
+shape, and replays it; ``.fn`` is the eager body.  The capture runs in
+``thread_local`` error mode: NCCL's watchdog thread may query its events
+while a capture runs, which the default global mode would turn into a
+failed capture.  On the CPU (gloo) a Program calls its body eagerly.
+
 The run is SPMD: every rank of the group calls the same functions with
-the same arguments (as under ``torchrun``).  Set up the process group
-first, e.g. ``torch.distributed.init_process_group("nccl",
+the same arguments (as under ``torchrun``).  That holds the programs
+too: a rank that records or replays a collective while another runs
+something else hangs the group, so every rank must make the same keys
+in the same order and replay them in the same order.  The inputs have
+the same shapes on every rank, so their keys agree.  Set up the process
+group first, e.g. ``torch.distributed.init_process_group("nccl",
 device_id=torch.device("cuda", local_rank))`` under ``torchrun
 --nproc_per_node=N``; ``make_mesh`` makes the rank's card the current
 device in any case.
@@ -40,8 +53,15 @@ import torch
 import torch.distributed as dist
 
 from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.program import Program
 from ugrt_torch.diff.render_grad import render_color
 from ugrt_torch.dist import all_reduce
+from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
+from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels.shadow_sweep import shadow_sweep
+
+# The kernels a replay launches, credited per replay (core.program).
+COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep)
 
 
 class Mesh(NamedTuple):
@@ -91,9 +111,15 @@ def _strip_width(cfg: RenderConfig, world_size: int) -> int:
     return cfg.grid_x // world_size
 
 
+def _program(body) -> Program:
+    """``body`` (a closure over the mesh: tensors only) as a Program."""
+    return Program(body, static=(), counters=COUNTERS,
+                   capture_error_mode="thread_local")
+
+
 def sharded_render(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
-                   num_lights: int, use_spot: bool):
-    """A function (vertices, materials, faces, mat_index, camcoords,
+                   num_lights: int, use_spot: bool) -> Program:
+    """A Program (vertices, materials, faces, mat_index, camcoords,
     light_camcoords, light_position) -> (image f32 [H, W, 3], overflow
     0-d bool) that renders this rank's strip and gathers the whole image
     to every rank.  ``overflow`` is any strip's capacity flag: a sharded
@@ -118,12 +144,12 @@ def sharded_render(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
             1, 0, 2, 3).reshape(H, mesh.world_size * w, 3)
         return image, _any(overflow, mesh.group)
 
-    return render
+    return _program(render)
 
 
 def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
-                       num_lights: int, use_spot: bool):
-    """A function (vertices, materials, faces, mat_index, camcoords,
+                       num_lights: int, use_spot: bool) -> Program:
+    """A Program (vertices, materials, faces, mat_index, camcoords,
     light_camcoords, light_position, target) -> (loss, grad_vertices,
     grad_materials, overflow), each the same on every rank.
 
@@ -148,9 +174,10 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                 num_lights=num_lights, use_spot=use_spot, bx0=bx0,
                 n_bx=n_bx, group=mesh.group)
             # Divide by a device tensor: on CUDA, a Python divisor turns
-            # into a multiply by its reciprocal.
-            denom = torch.tensor(3.0 * cfg.image_size, dtype=torch.float32,
-                                 device=color.device)
+            # into a multiply by its reciprocal.  A fill, not a copy from
+            # the host, which a capture refuses.
+            denom = torch.full((), 3.0 * cfg.image_size,
+                               dtype=torch.float32, device=color.device)
             loss = torch.sum((color - target[:, cols]) ** 2) / denom
             grad_v, grad_m = torch.autograd.grad(loss, (v, m))
         return (all_reduce(loss.detach(), SUM, mesh.group),
@@ -158,4 +185,4 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                 all_reduce(grad_m, SUM, mesh.group),
                 _any(overflow, mesh.group))
 
-    return step
+    return _program(step)
