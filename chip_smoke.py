@@ -138,8 +138,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
     frames and steps, and what a capture holds.  (i) A Program whose
     body calls .item() must raise at capture, and a replay after it
     still equal eager.
+12. The bench entries, as a user runs them, each in a subprocess from
+    the checkout's root: ``python -m ugrt_torch.bench --breakdown``
+    (parity gate, chained and fenced step, the five stages) and
+    ``--pi-extent --skip-parity``; each must exit 0 with bench.py's JSON
+    line last, value > 0, parity_shadow_px <= 16 (the gate must have run
+    in the first); the chained step is printed beside phase 6's.  Then
+    ``python -m ugrt_torch.micro.bench_reflective`` (windowed reflective
+    frame against the base frame), which fails on overflow.  The bench's
+    launches: ``bench.main(["--iters", "5", "--skip-parity",
+    "--breakdown"])`` and ``bench_reflective.run`` at the flagship in
+    this process, the counts of K1-K3 and D1 set to 0 just before and
+    read just after (every kernel must have launched).
 Then one JSON line with the kernels (D1 at the flagship reflective
-frame's rays, its launches those of phase 8's 4 frames), and last
+frame's rays, its launches those of phase 8's 4 frames; each kernel's
+"bench_launches" those of phase 12's in-process runs), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --dist, under ``python -m torch.distributed.run --standalone
@@ -158,7 +171,10 @@ kernels and busy share of one profiled replayed step;
 train(use_mesh=True) 3 steps and a resume to 5 against the same runs on
 one card (losses rtol 1e-5, parameters equal on every rank, rank 0
 alone checkpointing); host ms per step of train(use_mesh=True) against
-train() on one card, in turns.  Rank 0 prints, last the "ok" line.
+train() on one card, in turns; then ``ugrt_torch.bench.main(["--mesh",
+N])`` in this process on every rank (the parity gate on each card, the
+sharded step timed; rank 0's JSON line must hold value > 0, mesh=N and
+parity_shadow_px <= 16).  Rank 0 prints, last the "ok" line.
 
 Imports no JAX and nothing of ugrt.  The scenes are procedural and made
 from --seed.
@@ -167,7 +183,9 @@ from --seed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -619,7 +637,7 @@ def step_inputs(scene, cfg, camera, light, device):
 
 def step_phase(scene, flagship, camera, light, kernels):
     """Phase 6: the fwd+bwd step on the card.  Returns the launches of
-    each K kernel over the warm-up and timed steps."""
+    each K kernel over the warm-up and timed steps, and the steady ms."""
     import torch
 
     from ugrt_torch.core.host_camera import CameraSpec
@@ -698,7 +716,7 @@ def step_phase(scene, flagship, camera, light, kernels):
     if (abs(loss_g - loss_w) > 1e-7 + 1e-5 * abs(loss_w)
             or max(errs.values()) > GRAD_REL):
         fail("phase 6: the step on the card disagrees with the CPU")
-    return launches
+    return launches, sum(times) / len(times)
 
 
 # Phase 7: each probe kernel, the TPU kernel it replaces, and the variant
@@ -1644,6 +1662,94 @@ def packet_phase(scene, flagship, camera, light):
         fail("phase 10d: build_packets disagrees or breaks an invariant")
 
 
+def run_entry(*argv, timeout=600):
+    """``python -m <argv>`` from the checkout's root, as a user runs it:
+    (its last stdout line as JSON, seconds).  Fails on a non-zero exit
+    or a last line that is not a JSON object."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        line = None
+    if proc.returncode or not isinstance(line, dict):
+        say(proc.stdout[-4000:])
+        say(proc.stderr[-4000:])
+        fail(f"phase 12: python -m {' '.join(argv)} exited "
+             f"{proc.returncode}, last line {lines[-1:] or None}")
+    return line, time.perf_counter() - t0
+
+
+def bench_phase(kernels, step_ms):
+    """Phase 12: the bench entries (ugrt_torch.bench and
+    micro.bench_reflective) in subprocesses, then in this process with
+    their kernels' launches counted.  Returns those launches."""
+    import tempfile
+
+    import torch
+
+    from ugrt_torch import bench
+    from ugrt_torch.micro import bench_reflective
+
+    torch.cuda.empty_cache()
+    for argv in (("--breakdown",), ("--pi-extent", "--skip-parity")):
+        line, secs = run_entry("ugrt_torch.bench", *argv)
+        d = line["detail"]
+        stages = {k: d[k] for k in ("grid_ms", "light_grid_ms", "primary_ms",
+                                    "shadow_ms", "forward_ms") if k in d}
+        say(f"phase 12: bench {' '.join(argv)} ({secs:.1f} s): "
+            f"{line['metric']} {line['value']!r} {line['unit']}; chained "
+            f"{d['step_ms_chained']!r} ms (CUDA events "
+            f"{d['step_ms_chained_events']!r}), fenced "
+            f"{d['step_ms_fenced']!r} ({d['step_ms_fenced_events']!r}); "
+            f"phase 6's steady step {step_ms:.3f} ms (CUDA events); "
+            f"compile_s {d['compile_s']!r}; {d['light_grid_mode']}; parity "
+            f"shadow px {d.get('parity_shadow_px')}; stages {stages}")
+        if (line["metric"] != "primary_rays_per_s_fwd_bwd"
+                or not line["value"] > 0
+                or d.get("parity_shadow_px", 0) > bench.PARITY_SHADOW_PX
+                or (argv[0] == "--breakdown" and (
+                    "parity_shadow_px" not in d or len(stages) != 5))):
+            fail(f"phase 12: bench {' '.join(argv)}: bad result line")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "reflective_1024.png")
+        line, secs = run_entry("ugrt_torch.micro.bench_reflective", "--out",
+                               png)
+        say(f"phase 12: bench_reflective ({secs:.1f} s): base frame "
+            f"{line['base_ms']!r} ms (CUDA events {line['base_ms_events']!r}"
+            f"), reflective {line['reflective_ms']!r} "
+            f"({line['reflective_ms_events']!r}), bounce "
+            f"{line['bounce_ms']!r}; overflow {line['overflow']}; "
+            f"reflection hit fraction {line['reflection_hit_fraction']!r}; "
+            f"PNG {os.path.getsize(png) if os.path.exists(png) else None} "
+            f"bytes")
+        if line["overflow"] or not os.path.exists(png):
+            fail("phase 12: bench_reflective overflowed or wrote no PNG")
+
+        # The same paths in this process, launches counted.
+        for k in kernels.values():
+            k.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench.main(["--iters", "5", "--skip-parity", "--breakdown"])
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        with contextlib.redirect_stdout(io.StringIO()):
+            w = bench.workload("cuda")        # windowed, as the script
+            refl = bench_reflective.run(w.cfg, w.scene, torch.device("cuda"),
+                                        out_path=png, iters=3)
+    launches = {name: k.launches for name, k in kernels.items()}
+    say(f"phase 12: in this process: bench {line['value']!r} rays/s "
+        f"(chained {line['detail']['step_ms_chained']!r} ms), "
+        f"bench_reflective {refl['reflective_ms']!r} ms, overflow "
+        f"{refl['overflow']}; launches {launches}")
+    if min(launches.values()) <= 0 or refl["overflow"]:
+        fail("phase 12: a kernel of the bench paths was never launched")
+    return launches
+
+
 def bitwise_diffs(got, want):
     """{key: elements whose bits differ} of two dicts of tensors."""
     import torch
@@ -2255,6 +2361,29 @@ def dist_main(args):
              f"/ one card / mesh, rank 0): use_mesh {step_ms[True]} (mean "
              f"{np.mean(step_ms[True]):.3f}, slowest rank {w[0]:.3f}); one "
              f"card {step_ms[False]} (mean {np.mean(step_ms[False]):.3f})")
+
+        # Phase 12 at this world: the bench's sharded step on every rank,
+        # in this process (its group helper takes this group).
+        from ugrt_torch import bench
+
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(["--mesh", str(n)])
+        if rank0:
+            line = json.loads(out.getvalue().strip().splitlines()[-1])
+            d = line["detail"]
+            say(f"dist: bench --mesh {n} ({time.perf_counter() - t0:.1f} s):"
+                f" {line['value']!r} {line['unit']}; chained "
+                f"{d['step_ms_chained']!r} ms (CUDA events "
+                f"{d['step_ms_chained_events']!r}), fenced "
+                f"{d['step_ms_fenced']!r} ({d['step_ms_fenced_events']!r}),"
+                f" slowest rank; parity shadow px (rank 0) "
+                f"{d.get('parity_shadow_px')}")
+            if (not line["value"] > 0 or f"mesh={n}" not in line["unit"]
+                    or d.get("parity_shadow_px", 99)
+                    > bench.PARITY_SHADOW_PX):
+                fail(f"dist: bench --mesh {n}: bad result line")
         if rank0:
             import shutil
 
@@ -2409,7 +2538,8 @@ def main(argv=None):
     k_wrappers = {"primary_sweep": k1.primary_sweep,
                   "heavy_primary_sweep": k2.heavy_primary_sweep,
                   "shadow_sweep": k3.shadow_sweep}
-    step_launches = step_phase(scene, flagship, camera, light, k_wrappers)
+    step_launches, step_ms = step_phase(scene, flagship, camera, light,
+                                        k_wrappers)
     probes = probe_phase()
 
     # Phase 8: the reflective frame (its program, and D1); phase 9: the
@@ -2439,6 +2569,13 @@ def main(argv=None):
     say(f"phase 11 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
 
+    # Phase 12: the bench entries.
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(dict(k_wrappers, uniform_dda=uniform_dda),
+                                 step_ms)
+    say(f"phase 12 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - started:.1f} s")
+
     def entry(name, sites_, source, replaces):
         rs = [results[s] for s in sites_]
         b_ms = sum(r["bound_ms"] for r in rs)
@@ -2449,6 +2586,7 @@ def main(argv=None):
                 "train_launches": train_launches[name],
                 "mesh_launches": mesh_launches[name],
                 "program_launches": program_launches[name],
+                "bench_launches": bench_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
                 "kernel_ms": sum(r["kernel_ms"] for r in rs),
@@ -2478,6 +2616,7 @@ def main(argv=None):
         "replaces": "ugrt/trace/reflect.py:56 (trace_uniform_dda: XLA "
                     "control flow, not a Pallas kernel)",
         "launches": reflect_launches["uniform_dda"],
+        "bench_launches": bench_launches["uniform_dda"],
         "max_abs_err": max(r["max_abs_err"] for r in dda.values()),
         **{k: main_dda[k] for k in ("ms", "kernel_ms", "host_ms",
                                      "plain_ms", "bound_ms", "bound_by",

@@ -20,10 +20,16 @@ through them stays within rtol 1e-6 of train() with the eager step.  The
 reflection DDA D1 is bitwise equal to its plain version (t, face_id,
 overflow) on the Cornell reflective frame's rays, in pixel order and
 shuffled, and on the DDA's edge case (ugrt_torch/micro/dda_edge.py),
-also in batches of 48 faces over a coarser grid.
+also in batches of 48 faces over a coarser grid.  The bench entry
+``python -m ugrt_torch.bench`` runs as a user runs it, its parity gate
+included (face_id and t bitwise, at most 16 shadow pixels apart).
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -842,3 +848,20 @@ def test_program_refuses_host_read_in_thread_local_mode(card):
     with pytest.raises(RuntimeError):
         prog(torch.ones(4, device=card))
     assert prog.cache_size() == 0
+
+
+def test_bench_entry_on_card(card):
+    """python -m ugrt_torch.bench --iters 3 at the flagship: exit 0, the
+    last stdout line bench.py's JSON object, the parity gate within its
+    16 shadow pixels, no overflow (the bench raises on one)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ugrt_torch.bench", "--iters", "3"],
+        cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    assert line["metric"] == "primary_rays_per_s_fwd_bwd" and line["value"] > 0
+    assert d["parity_shadow_px"] <= 16 and d["trace_backend"] == "cuda"
+    assert d["step_ms_chained_events"] > 0 and d["light_grid_mode"] == (
+        "windowed")

@@ -69,7 +69,9 @@ def test_port_imports_nothing_of_ugrt():
         "    importlib.import_module(name)",
         "assert {'ugrt_torch.dist.mesh', 'ugrt_torch.scene.native',",
         "        'ugrt_torch.core.program', 'ugrt_torch.kernels.uniform_dda',",
-        "        'ugrt_torch.micro.dda_edge'} <= set(names)",
+        "        'ugrt_torch.micro.dda_edge', 'ugrt_torch.bench',",
+        "        'ugrt_torch.micro._timing',",
+        "        'ugrt_torch.micro.bench_reflective'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",

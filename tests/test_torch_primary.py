@@ -180,3 +180,28 @@ def test_trace_primary_refuses_bad_strips(small_cfg, cornell,
     with pytest.raises(ValueError, match="even"):
         tprim_t.trace_primary(*args_t, cfg_t, bx0=3, n_bx=1)
     tprim_t.trace_primary(*args_t, cfg_t, bx0=3, n_bx=2)
+
+
+# ugrt's backend= argument (primary.py:201-204) with the port's values:
+# "plain" bitwise the default on CPU tensors (K1 and K2's plain versions:
+# the heavy case), "kernel" on CPU tensors and an unknown name raise.
+@pytest.mark.parametrize("backend", ["plain", "kernel", "unknown"])
+def test_trace_primary_backend(small_cfg, cornell, backend):
+    cfg = dataclasses.replace(small_cfg, heavy_capacity=1024)
+    cap = cfg.pair_capacity(cornell.num_faces) * 16
+    _, _, args_t, cfg_t = _inputs(cornell, INSIDE_BOX, cfg, cap,
+                                  heavy_threshold=16)
+    if backend != "plain":
+        match = "CUDA tensors" if backend == "kernel" else "unknown"
+        with pytest.raises(ValueError, match=match):
+            tprim_t.trace_primary(*args_t, cfg_t, backend=backend)
+        return
+    assert int(args_t[3].heavy_count) > 0
+    want = tprim_t.trace_primary(*args_t, cfg_t)
+    got = tprim_t.trace_primary(*args_t, cfg_t, backend="plain")
+    for k in ("face_id", "t", "normal", "ray_dir"):
+        assert torch.equal(got[k].view(torch.int32)
+                           if got[k].is_floating_point() else got[k],
+                           want[k].view(torch.int32)
+                           if want[k].is_floating_point() else want[k]), k
+    assert (want["face_id"] >= 0).sum() > want["face_id"].numel() // 2

@@ -12,6 +12,7 @@ no such slack is needed here.)
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -212,3 +213,40 @@ def test_shadow_sweep_skewed(chunk):
             assert bool(got[real].all()) and not bool(got[~real].any())
         else:
             assert 0.2 < float(got[real].float().mean()) < 0.8
+
+
+# ugrt's backend= argument (shadow.py:250-256) with the port's values:
+# "plain" bitwise the default on CPU tensors at both of K3's sites (a
+# heavy list, windowed), "kernel" on CPU tensors and an unknown name
+# raise.
+@pytest.mark.parametrize("backend", ["plain", "kernel", "unknown"])
+def test_trace_shadow_backend(small_cfg, cornell, generic_camera,
+                              generic_light, backend, monkeypatch):
+    calls = []
+    plain = tshadow_t.shadow_sweep_plain
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("box", False))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tshadow_t, "shadow_sweep_plain", counted)
+    if backend != "plain":
+        monkeypatch.setattr(tshadow_t, "trace_shadow", functools.partial(
+            tshadow_t.trace_shadow, backend=backend))
+        match = "CUDA tensors" if backend == "kernel" else "unknown"
+        with pytest.raises(ValueError, match=match):
+            _shadow_both(cornell, generic_camera, generic_light, small_cfg,
+                         "windowed", 4)
+        assert not calls
+        return
+    lg, _, sh_j, want = _shadow_both(cornell, generic_camera, generic_light,
+                                     small_cfg, "windowed", 4)
+    assert not calls                 # the default: the wrapper
+    monkeypatch.setattr(tshadow_t, "trace_shadow", functools.partial(
+        tshadow_t.trace_shadow, backend="plain"))
+    _, _, _, got = _shadow_both(cornell, generic_camera, generic_light,
+                                small_cfg, "windowed", 4)
+    assert sorted(set(calls)) == [False, True]
+    assert int(lg.heavy_count) > 0 and want.sum() > 100
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(sh_j, want)

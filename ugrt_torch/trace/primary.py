@@ -11,6 +11,10 @@ t = -1, face_id = -2, normal = -1 (trace_kernel.cu:254-263).
 
 ugrt's XLA work-item branch (primary.py:60-198, :310-334) has no
 counterpart: on the CPU the sweeps run their plain PyTorch versions.
+``backend`` is ugrt's argument of that name (primary.py:201-204) with
+the port's values: None (the kernels on CUDA tensors, the plain versions
+on CPU ones), "kernel" (CUDA tensors only) or "plain" (the plain
+versions on any device; bench's parity gate holds the two apart).
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.vecmath import cross, dot, normalize, transform_point
 from ugrt_torch.grid.build import DeviceGrid
-from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
-from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels._plain import choose_sweep
+from ugrt_torch.kernels.heavy_primary_sweep import (heavy_primary_sweep,
+                                                    heavy_primary_sweep_plain)
+from ugrt_torch.kernels.primary_sweep import primary_sweep, primary_sweep_plain
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
 
@@ -83,7 +89,8 @@ def untile(img_tiled, cfg: RenderConfig, tiles_x: int, tiles_y: int):
 
 
 def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
-                  cfg: RenderConfig, *, bx0: int = 0, n_bx: int | None = None):
+                  cfg: RenderConfig, *, bx0: int = 0, n_bx: int | None = None,
+                  backend: str | None = None):
     """Full primary trace.  Returns per-pixel t [H, w], face_id [H, w]
     int32, normal [H, w, 3] and ray_dir [H, w, 3].
 
@@ -92,7 +99,8 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
     and the outputs cover image columns [bx0 * 8, (bx0 + n_bx) * 8).  The
     grid is the whole image's.  Default: the whole image (w = W).  Every
     ray's result is its own, so strips side by side equal the whole
-    image bit for bit (``dist.mesh`` renders one strip per rank)."""
+    image bit for bit (``dist.mesh`` renders one strip per rank).
+    ``backend``: which sweeps run K1 and K2 (module docstring)."""
     H, W = cfg.screen_height, cfg.screen_width
     if (W // cfg.tile_x != cfg.grid_x or H // cfg.tile_y != cfg.grid_y
             or cfg.tile_x * cfg.tile_y != 64):
@@ -111,6 +119,9 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
                          "block: n_bx * grid_y must be even")
     nb = num_tiles // 2
     dev = camcoords.device
+    sweep = choose_sweep(primary_sweep, primary_sweep_plain, backend, dev)
+    heavy_sweep = choose_sweep(heavy_primary_sweep, heavy_primary_sweep_plain,
+                               backend, dev)
     # The strip's first cell: cells are x-major (bx * grid_y + by) with
     # NS slabs each.  Keys travel as f32, exact below 2^24.
     c0 = bx0 * tiles_y * NS
@@ -140,8 +151,7 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
         lo = grid.cell_offset[k1]
         hi = grid.cell_offset[k2] + grid.cell_count[k2]
         w_lo, w_hi = tw.window_span(lo, hi, tw.WIN)
-        t_blk, f_blk = primary_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
-                                     chunk=PCHUNK)
+        t_blk, f_blk = sweep(tri_w, rows, w_lo, w_hi, cfg=cfg, chunk=PCHUNK)
         t_slabs.append(t_blk.reshape(num_tiles, 64))
         f_slabs.append(f_blk.reshape(num_tiles, 64))
     t_cell = torch.stack(t_slabs, dim=1)                     # [T, NS, 64]
@@ -151,8 +161,7 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
         co = theavy.heavy_coeffs(vertices, faces, grid.heavy_faces,
                                  grid.heavy_count, eye, grid.heavy_ranges)
         table = tw.pack_heavy_windows(co)
-        t_hb, f_hb = heavy_primary_sweep(grid.heavy_count, table, rows,
-                                         cfg=cfg)
+        t_hb, f_hb = heavy_sweep(grid.heavy_count, table, rows, cfg=cfg)
         # K2 already reports face 2^31-1 wherever t is 3e38 (no hit).
         t_h = t_hb.reshape(num_tiles, 64)
         f_h = f_hb.reshape(num_tiles, 64)

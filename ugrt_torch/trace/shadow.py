@@ -8,7 +8,9 @@ hit point carried along, cut into 128-ray blocks, and swept by K3
 grid's pair span of each block's cells (admission by cell key), then
 over the 128-wide heavy windows whose footprint union the block's cells
 touch (admission by footprint box).  The flags OR together and scatter
-back through the sort permutation.
+back through the sort permutation.  ``trace_shadow``'s ``backend`` is
+ugrt's argument (shadow.py:250-256) with the port's values, as
+``trace.primary``'s.
 
 Rays whose direction leaves the light grid get the sentinel cell and
 test no triangle (ugrt's defined divergence from the reference's
@@ -32,7 +34,8 @@ from ugrt_torch.dist import all_reduce
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.grid.build import DeviceGrid
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep
+from ugrt_torch.kernels._plain import choose_sweep
+from ugrt_torch.kernels.shadow_sweep import shadow_sweep, shadow_sweep_plain
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
 
@@ -177,16 +180,20 @@ def light_window(primary, primary_eye, light_camcoords, cfg: RenderConfig,
 
 def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
                  primary, primary_eye, cfg: RenderConfig, *,
-                 x_max=None, y_max=None, window=None):
+                 x_max=None, y_max=None, window=None,
+                 backend: str | None = None):
     """Per-pixel shadow flags [H, W] int32 (mod_light_rckernel semantics).
 
     x_max/y_max override the angular extent of the ray -> cell mapping;
     ``window`` selects the windowed parameterization.  Either must match
     what ``light_grid`` was built with, or cell keys disagree.
+    ``backend``: None, "kernel" or "plain" (``trace.primary``), for both
+    of K3's sites.
     """
     H, W = primary["t"].shape
     n = H * W
     dev = primary["t"].device
+    sweep = choose_sweep(shadow_sweep, shadow_sweep_plain, backend, dev)
     L = light_camcoords[0:3]
     NS = cfg.num_slabs
     sentinel = cfg.cell_sentinel
@@ -241,8 +248,8 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         hi = torch.where(live, light_grid.cell_offset[k2 + slab]
                          + light_grid.cell_count[k2 + slab], 0)
         w_lo, w_hi = tw.window_span(lo, hi, SWIN)
-        shadow_blocks |= shadow_sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
-                                      chunk=SCHUNK)
+        shadow_blocks |= sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
+                               chunk=SCHUNK)
 
     if light_grid.heavy_faces.shape[0] > 0:
         co = theavy.heavy_coeffs(vertices, faces, light_grid.heavy_faces,
@@ -252,8 +259,8 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         tri_hw = tw.pack_heavy_coeff_windows(co, win=HWIN)
         hlo, hhi = tw.heavy_block_window_range(
             first_cell, last_real, cfg.grid_y, tw.heavy_window_rects(co, HWIN))
-        shadow_blocks |= shadow_sweep(tri_hw, rows, hlo, hhi, cfg=cfg,
-                                      box=True, chunk=HCHUNK)
+        shadow_blocks |= sweep(tri_hw, rows, hlo, hhi, cfg=cfg, box=True,
+                               chunk=HCHUNK)
 
     # Unpermute: a scatter by the sort permutation (unique indices, so
     # deterministic).
