@@ -150,9 +150,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
     "--breakdown"])`` and ``bench_reflective.run`` at the flagship in
     this process, the counts of K1-K3 and D1 set to 0 just before and
     read just after (every kernel must have launched).
+13. The profiling modules of ugrt_torch.micro, as a user runs them, each
+    in a subprocess with its output in a temporary directory:
+    ``profile_chain`` (every line item in order with positive host and
+    CUDA-event ms, and every statistic); ``capture_trace``, windowed
+    and ``--pi-extent``, each followed by ``parse_trace`` on its trace
+    (total device time positive; K1's, K2's and K3's kernels in the
+    table, their kernel events counted); bench's windowed step profiled
+    in this process beside it; ``render_samples`` (both PNGs must
+    decode at 1024^2 and 512^2).  Prints each module's headline lines
+    and parse_trace's top 25 groups.  The device time and busy share of
+    every profile in this script come from micro.parse_trace.
 Then one JSON line with the kernels (D1 at the flagship reflective
 frame's rays, its launches those of phase 8's 4 frames; each kernel's
-"bench_launches" those of phase 12's in-process runs), and last
+"bench_launches" those of phase 12's in-process runs, "profile_launches"
+K1-K3's kernel events in phase 13's windowed and pi-extent traces), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --dist, under ``python -m torch.distributed.run --standalone
@@ -174,7 +186,9 @@ alone checkpointing); host ms per step of train(use_mesh=True) against
 train() on one card, in turns; then ``ugrt_torch.bench.main(["--mesh",
 N])`` in this process on every rank (the parity gate on each card, the
 sharded step timed; rank 0's JSON line must hold value > 0, mesh=N and
-parity_shadow_px <= 16).  Rank 0 prints, last the "ok" line.
+parity_shadow_px <= 16), and ``micro.trace_psum_overlap.run`` on every
+rank (one profiled replay of the sharded step; at worlds above one every
+rank must find an all-reduce kernel).  Rank 0 prints, last the "ok" line.
 
 Imports no JAX and nothing of ugrt.  The scenes are procedural and made
 from --seed.
@@ -558,13 +572,31 @@ def kernel_phase(scene, flagship, camera, light):
     return results
 
 
+def trace_events(prof):
+    """The device events of a finished torch.profiler run, read back from
+    its Chrome trace by micro.parse_trace (the one aggregation of device
+    time; its "# path" line on stderr is dropped)."""
+    import tempfile
+
+    from ugrt_torch.micro import parse_trace
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "profile.pt.trace.json")
+        prof.export_chrome_trace(path)
+        with contextlib.redirect_stderr(io.StringIO()):
+            return parse_trace.device_events(parse_trace.load(path))
+
+
 def profile_once(label, fn, top_n=8):
     """torch.profiler over one call of fn(): prints its host ms, the
-    device-busy share (sum of CUDA kernel time / host ms), the kernel
-    launches and the top ops by device time.  Returns the names of the
-    CUDA kernels that ran."""
+    device time (micro.parse_trace.aggregate) and its busy share of the
+    device span (first device event to last) and of the host ms, the
+    device events and the top groups by device time.  Returns the names
+    of the device events (kernels, copies) that ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ugrt_torch.micro import parse_trace
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -573,16 +605,14 @@ def profile_once(label, fn, top_n=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    events = trace_events(prof)
+    s = parse_trace.aggregate(events)
     say(f"profile: {label}: {wall_ms:.3f} ms host (profiled), device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in kernels)} kernel launches; top: "
-        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
-                    f" x{e.count}" for e in top))
-    return [e.key for e in kernels]
+        f"{s.total_ms:.3f} ms ({100 * s.busy:.1f}% of the device span "
+        f"{s.span_ms:.3f} ms; {100 * s.total_ms / wall_ms:.1f}% of the host "
+        f"ms), {len(events)} kernel launches; top: "
+        + "; ".join(f"{k[:48]} {v:.3f} ms x{c}" for k, v, c in s.rows[:top_n]))
+    return sorted({e["name"] for e in events})
 
 
 def profile_frames(scene, flagship, camera, light, lp):
@@ -1459,18 +1489,20 @@ def nccl_profile(fn, label="phase 10a", show=True):
     (the profiler starts at another moment on each rank, and a
     collective of the first call would wait for the last rank): the NCCL
     collectives (host ops and the device time under them) and the NCCL
-    kernels, with their launches, and the device-busy share (sum of CUDA
-    kernel time / host ms; printed where ``show``; every rank of a group
-    profiles).  A replay runs no host op: its collectives show as
-    kernels only."""
+    kernels, with their launches, and the device-busy share (device time
+    over the device span and over the host ms, micro.parse_trace;
+    printed where ``show``; every rank of a group profiles).  A replay
+    runs no host op: its collectives show as kernels only."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from ugrt_torch.micro import parse_trace
+
     recorded = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: recorded.append(
-                     p.key_averages())) as prof:
+                     (p.key_averages(), trace_events(p)))) as prof:
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1478,28 +1510,24 @@ def nccl_profile(fn, label="phase 10a", show=True):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
-    events = recorded[0]
-    # The profiler's own step span is a device-side event too: not work.
-    dev = [e for e in events if e.device_type.name == "CUDA"
-           and not e.key.startswith("ProfilerStep")]
-    ops = [e for e in events if e.device_type.name != "CUDA"
+    averages, events = recorded[0]
+    ops = [e for e in averages if e.device_type.name != "CUDA"
            and "nccl" in e.key.lower()]
-    kernels = [e for e in dev if "nccl" in e.key.lower()]
+    s = parse_trace.aggregate(events)
+    kernels = [r for r in s.rows if "nccl" in r[0].lower()]
     if not show:
         return
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     say(f"{label}: one profiled sharded step: {wall_ms:.3f} ms host "
-        f"(profiled), device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%); NCCL ops "
+        f"(profiled), device busy {s.total_ms:.3f} ms "
+        f"({100 * s.busy:.1f}% of the device span {s.span_ms:.3f} ms; "
+        f"{100 * s.total_ms / wall_ms:.1f}% of the host ms); NCCL ops "
         + ("; ".join(f"{e.key} x{e.count} host {e.cpu_time_total / 1e3:.3f}"
                      f" ms, device {e.device_time_total / 1e3:.4f} ms"
                      for e in ops) or "none")
         + "; NCCL kernels "
-        + ("; ".join(f"{e.key[:60]} x{e.count} "
-                     f"{e.self_device_time_total / 1e3:.4f} ms"
-                     for e in kernels) or "none launched")
-        + f" (of {busy_ms:.3f} ms device time, "
-          f"{sum(e.count for e in dev)} launches)")
+        + ("; ".join(f"{k[:60]} x{c} {v:.4f} ms" for k, v, c in kernels)
+           or "none launched")
+        + f" (of {s.total_ms:.3f} ms device time, {len(events)} launches)")
 
 
 def strip_phase(scene, flagship, camera, light, kernels):
@@ -1662,25 +1690,35 @@ def packet_phase(scene, flagship, camera, light):
         fail("phase 10d: build_packets disagrees or breaks an invariant")
 
 
-def run_entry(*argv, timeout=600):
+def run_module(*argv, phase="phase 12", timeout=600):
     """``python -m <argv>`` from the checkout's root, as a user runs it:
-    (its last stdout line as JSON, seconds).  Fails on a non-zero exit
-    or a last line that is not a JSON object."""
+    (its stdout, seconds).  Fails on a non-zero exit."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", *argv], cwd=root,
                           capture_output=True, text=True, timeout=timeout)
-    lines = proc.stdout.strip().splitlines()
+    if proc.returncode:
+        say(proc.stdout[-4000:])
+        say(proc.stderr[-4000:])
+        fail(f"{phase}: python -m {' '.join(argv)} exited "
+             f"{proc.returncode}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def run_entry(*argv, phase="phase 12", timeout=600):
+    """``run_module``, then its last stdout line as JSON: (that object,
+    seconds).  Fails on a last line that is not a JSON object."""
+    stdout, secs = run_module(*argv, phase=phase, timeout=timeout)
+    lines = stdout.strip().splitlines()
     try:
         line = json.loads(lines[-1]) if lines else None
     except json.JSONDecodeError:
         line = None
-    if proc.returncode or not isinstance(line, dict):
-        say(proc.stdout[-4000:])
-        say(proc.stderr[-4000:])
-        fail(f"phase 12: python -m {' '.join(argv)} exited "
-             f"{proc.returncode}, last line {lines[-1:] or None}")
-    return line, time.perf_counter() - t0
+    if not isinstance(line, dict):
+        say(stdout[-4000:])
+        fail(f"{phase}: python -m {' '.join(argv)}: last line "
+             f"{lines[-1:] or None} is not a JSON object")
+    return line, secs
 
 
 def bench_phase(kernels, step_ms):
@@ -1747,6 +1785,107 @@ def bench_phase(kernels, step_ms):
         f"{refl['overflow']}; launches {launches}")
     if min(launches.values()) <= 0 or refl["overflow"]:
         fail("phase 12: a kernel of the bench paths was never launched")
+    return launches
+
+
+# parse_trace's printout (micro.parse_trace.print_summary).
+TABLE_ROW = re.compile(r"^\s*([0-9.]+) ms  x(\d+)\s* (.*)$")
+TABLE_TOTAL = re.compile(r"^total device op time: ([0-9.]+) ms")
+TABLE_BUSY = re.compile(r"^device span: ([0-9.]+) ms; busy ([0-9.]+)%")
+
+
+def parse_table(text):
+    """(total ms, [(ms, count, group)], span ms, busy %) of parse_trace's
+    printout."""
+    total = span = busy = None
+    rows = []
+    for line in text.splitlines():
+        if m := TABLE_TOTAL.match(line):
+            total = float(m.group(1))
+        elif m := TABLE_BUSY.match(line):
+            span, busy = float(m.group(1)), float(m.group(2))
+        elif m := TABLE_ROW.match(line):
+            rows.append((float(m.group(1)), int(m.group(2)), m.group(3)))
+    return total, rows, span, busy
+
+
+def profiling_phase():
+    """Phase 13: the profiling modules of ugrt_torch.micro, each in a
+    subprocess from the checkout's root with its output in a temporary
+    directory, as a user runs them.  Returns K1-K3's kernel events in
+    capture_trace's traces {kernel: [windowed, pi extent]}."""
+    import tempfile
+
+    import torch
+
+    from ugrt_torch import bench
+    from ugrt_torch.micro import profile_chain, render_samples
+
+    torch.cuda.empty_cache()
+    line, secs = run_entry("ugrt_torch.micro.profile_chain",
+                           phase="phase 13")
+    rows, stats = line["rows"], line["stats"]
+    say(f"phase 13: profile_chain ({secs:.1f} s; host ms, CUDA-event ms): "
+        + "; ".join(f"{n.strip()} {h:.4f} ({e:.4f})" for n, h, e in rows))
+    say(f"phase 13: profile_chain statistics {stats}")
+    names = [r[0] for r in rows]
+    if (names != list(profile_chain.LINE_ITEMS)
+            or not all(h > 0 and e is not None and e > 0
+                       for _, h, e in rows)
+            or sorted(stats) != sorted(profile_chain.STATS)
+            or any(v is None for v in stats.values())):
+        fail("phase 13: profile_chain missed a line item or a statistic, "
+             "or an item's ms is not positive")
+
+    launches = {k: [] for k in SWEEP_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in ((), ("--pi-extent",)):
+            d = os.path.join(tmp, "pi_extent" if argv else "windowed")
+            out, secs = run_module("ugrt_torch.micro.capture_trace", "--out",
+                                   d, *argv, phase="phase 13")
+            losses = [ln for ln in out.splitlines() if "loss" in ln]
+            text, _ = run_module("ugrt_torch.micro.parse_trace", d, "100000",
+                                 phase="phase 13")
+            total, table, span, busy = parse_table(text)
+            say(f"phase 13: capture_trace {' '.join(argv) or '(windowed)'} "
+                f"({secs:.1f} s): {'; '.join(losses)}; parse_trace: total "
+                f"device op time {total} ms over a span of {span} ms (busy "
+                f"{busy}%), {len(table)} groups; top 25 (ms, launches, "
+                f"group):")
+            for ms, n, group in table[:25]:
+                say(f"  {ms:9.2f} ms x{n:<5d} {group}")
+            found = {k: sum(n for _, n, g in table if re.search(pat, g))
+                     for k, pat in SWEEP_KERNELS.items()}
+            say(f"phase 13: K1-K3 kernel events in the trace {found}")
+            for k, n in found.items():
+                launches[k].append(n)
+            if not (total and total > 0) or min(found.values()) <= 0:
+                fail(f"phase 13: capture_trace {' '.join(argv)}: no device "
+                     "time, or K1, K2 or K3 missing from parse_trace's table")
+
+        # The same step in this process: chip_smoke's own profile of it.
+        w = bench.workload("cuda")
+        x = bench.step_inputs(w, torch.device("cuda"))
+        step, _ = bench.make_step(w, x)
+        step(x["vertices"], x["materials"])
+        profile_once("phase 13: bench's windowed step in this process",
+                     lambda: step(x["vertices"], x["materials"]), top_n=5)
+
+        out, secs = run_module("ugrt_torch.micro.render_samples", "--out",
+                               tmp, phase="phase 13")
+        shapes = {}
+        for name in ("cathedral.png", "cornell_reflective.png"):
+            path = os.path.join(tmp, name)
+            shapes[name] = (render_samples.read_png(path).shape
+                            if os.path.exists(path) else None)
+        say(f"phase 13: render_samples ({secs:.1f} s): "
+            + "; ".join(ln for ln in out.splitlines()
+                        if ln.startswith(("cathedral", "cornell")))
+            + f"; decoded {shapes}")
+        if shapes != {"cathedral.png": (1024, 1024, 3),
+                      "cornell_reflective.png": (512, 512, 3)}:
+            fail("phase 13: render_samples' PNGs do not decode at their "
+                 "sizes")
     return launches
 
 
@@ -2384,6 +2523,22 @@ def dist_main(args):
                     or d.get("parity_shadow_px", 99)
                     > bench.PARITY_SHADOW_PX):
                 fail(f"dist: bench --mesh {n}: bad result line")
+
+        # Phase 13 at this world: where the sharded step's all-reduces sit
+        # (micro.trace_psum_overlap on every rank; rank 0 prints).
+        from ugrt_torch.micro import trace_psum_overlap
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            rep = trace_psum_overlap.run(mesh, cfg, scene, d)
+        w = worst(-rep["all_reduces"])
+        say0(f"dist: trace_psum_overlap at world {n} "
+             f"({time.perf_counter() - t0:.1f} s): {rep['all_reduces']} "
+             f"all-reduce kernels on rank 0 (fewest on a rank {int(-w[0])})")
+        # A group of one reduces in place: NCCL launches no kernel.
+        if n > 1 and w[0] >= 0:
+            fail(f"dist: trace_psum_overlap at world {n} found no all-reduce "
+                 "kernel")
         if rank0:
             import shutil
 
@@ -2576,6 +2731,12 @@ def main(argv=None):
     say(f"phase 12 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
 
+    # Phase 13: the profiling modules.
+    t0 = time.perf_counter()
+    profile_launches = profiling_phase()
+    say(f"phase 13 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - started:.1f} s")
+
     def entry(name, sites_, source, replaces):
         rs = [results[s] for s in sites_]
         b_ms = sum(r["bound_ms"] for r in rs)
@@ -2587,6 +2748,7 @@ def main(argv=None):
                 "mesh_launches": mesh_launches[name],
                 "program_launches": program_launches[name],
                 "bench_launches": bench_launches[name],
+                "profile_launches": profile_launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs),
                 "kernel_ms": sum(r["kernel_ms"] for r in rs),

@@ -176,8 +176,16 @@ def runs(tmp_path_factory, small_cfg, tiny_cfg, cornell, generic_camera,
                          learning_rate=LR, optimize_vertices=False,
                          checkpoint_dir=str(d / "ck"), checkpoint_every=2,
                          use_mesh=True))
-        # world 2 also trains; both worlds render and step.
-        spec_w = dict(tasks=tasks + ([train] if world == 2 else []))
+        # trace_psum_overlap.py:30-33's configuration at this world: the
+        # Cornell box (subdiv=2), 64 rows, grid_x = 2 * world.
+        gx = 2 * world
+        psum_cfg = dataclasses.replace(small_cfg, screen_width=8 * gx,
+                                       screen_height=64, grid_x=gx, grid_y=8,
+                                       light_grid_mode="reference")
+        psum = dict(name="psum_overlap", key="psum_overlap", inputs="small",
+                    cfg=_cfg_fields(psum_cfg), out_dir=str(d / "psum"))
+        # world 2 also trains and profiles; both worlds render and step.
+        spec_w = dict(tasks=tasks + ([train, psum] if world == 2 else []))
         out[world] = _run_world(d / "run", world, spec_w, arrays)
     return out, small, tiny
 
@@ -307,6 +315,22 @@ def test_sharded_programs_one_key_per_shape(runs, world):
         for name in PROGRAM_RESULTS:
             assert [int(r[f"program_{name}/{i}/keys"])
                     for i in range(3)] == [1, 1, 2], name
+
+
+def test_trace_psum_overlap_gloo(runs):
+    """micro.trace_psum_overlap on gloo world 2 (the script's Cornell
+    configuration): every rank's profiled step holds an all-reduce, each
+    share lies in [0, 1], the span is the slowest rank's on every rank
+    and the loss is positive and the same on both ranks."""
+    results = runs[0][2]
+    spans = [r["psum_overlap/span_ms"] for r in results]
+    for r in results:
+        assert int(r["psum_overlap/all_reduces"]) >= 1
+        shares = r["psum_overlap/shares"]
+        assert shares.size >= 3 and ((shares >= 0) & (shares <= 1)).all()
+        assert r["psum_overlap/loss"] > 0
+        assert r["psum_overlap/loss"] == results[0]["psum_overlap/loss"]
+    assert all(s[0] == max(t[1] for t in spans) for s in spans)
 
 
 def test_train_use_mesh_matches_single_device(runs, tiny_cfg, tmp_path):

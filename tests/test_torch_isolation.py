@@ -71,7 +71,10 @@ def test_port_imports_nothing_of_ugrt():
         "        'ugrt_torch.core.program', 'ugrt_torch.kernels.uniform_dda',",
         "        'ugrt_torch.micro.dda_edge', 'ugrt_torch.bench',",
         "        'ugrt_torch.micro._timing',",
-        "        'ugrt_torch.micro.bench_reflective'} <= set(names)",
+        "        'ugrt_torch.micro.bench_reflective',",
+        "        'ugrt_torch.micro.parse_trace', 'ugrt_torch.micro.capture_trace',",
+        "        'ugrt_torch.micro.profile_chain', 'ugrt_torch.micro.render_samples',",
+        "        'ugrt_torch.micro.trace_psum_overlap'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",

@@ -41,6 +41,9 @@ def run_task(task, arrays, mesh, out):
     if task["name"] == "train":
         train_runs(task, arrays, cfg, out)
         return
+    if task["name"] == "psum_overlap":
+        psum_overlap(task, arrays, mesh, cfg, out)
+        return
     if task["name"] in PROGRAMS:
         program_runs(task, arrays, mesh, cfg, out)
         return
@@ -119,6 +122,24 @@ def train_runs(task, arrays, cfg, out):
     out[f"{task['key']}/saves"] = np.asarray(saves, dtype=np.int64)
     out[f"{task['key']}/latest"] = np.asarray(
         checkpoint.latest_step(task["train"]["checkpoint_dir"]))
+
+
+def psum_overlap(task, arrays, mesh, cfg, out):
+    """micro.trace_psum_overlap.run on the scene of task["inputs"] with
+    the script's Cornell camera and light; writes this rank's report."""
+    from ugrt_torch.micro import trace_psum_overlap as tpo
+
+    p = task["inputs"]
+    scene = Scene(**{k: arrays[f"{p}/{k}"] for k in SCENE_KEYS})
+    r = tpo.run(mesh, cfg, scene, task["out_dir"], camera=tpo.CORNELL_CAMERA,
+                light=tpo.CORNELL_LIGHT)
+    key = task["key"]
+    out[f"{key}/all_reduces"] = np.asarray(r["all_reduces"])
+    out[f"{key}/span_ms"] = np.asarray([r["span_ms"], r["rank_span_ms"]])
+    out[f"{key}/shares"] = np.asarray(
+        [r["overlap_share"]] + [x for e in r["top"]
+                                for x in (e["start"], e["end"])])
+    out[f"{key}/loss"] = np.asarray(r["loss"])
 
 
 def main(argv):

@@ -12,9 +12,18 @@ def require_cuda() -> torch.device:
     """The CUDA device; raises if there is none (the probes time the
     card and have no CPU fallback)."""
     if not torch.cuda.is_available():
-        raise RuntimeError("the ugrt_torch.micro probes need an NVIDIA GPU "
-                           "(torch.cuda.is_available() is False)")
+        raise RuntimeError("the ugrt_torch.micro probes need an NVIDIA GPU: "
+                           "CUDA is not available")
     return torch.device("cuda")
+
+
+def main_device() -> torch.device:
+    """``require_cuda()`` for a module's ``main``: without a card it
+    exits non-zero with the same message, and nothing runs on the CPU."""
+    try:
+        return require_cuda()
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
 
 
 def card_line() -> str:

@@ -237,6 +237,38 @@ def flagship_frame(seed):
         bridge.from_numpy(light.eye, "cuda", np.float32))
 
 
+def record_sweeps(frame_args, cfg, capacity: int, kernels=tuple(KERNELS)):
+    """{kernel: [(args, kwargs) of each call]} of the sweep wrappers
+    ``kernels`` (keys of KERNELS) in one eager frame of ``cfg`` (spot,
+    one light; ``render_frame``, the body of Renderer.render's program:
+    a capture cannot copy its inputs out), each argument a copy.  Each
+    wrapper is replaced in its trace module for the frame's length."""
+    from ugrt_torch.api.renderer import render_frame
+
+    seen = {k: [] for k in kernels}
+    saved = []
+
+    def recorder(kernel, sweep):
+        def record(*args, **kw):
+            seen[kernel].append(([x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in args], kw))
+            return sweep(*args, **kw)
+        return record
+
+    try:
+        for kernel in kernels:
+            _, attr, trace = KERNELS[kernel]
+            tmod = importlib.import_module(f"ugrt_torch.trace.{trace}")
+            saved.append((tmod, attr, getattr(tmod, attr)))
+            setattr(tmod, attr, recorder(kernel, getattr(tmod, attr)))
+        render_frame(*frame_args, cfg=cfg, capacity=capacity, num_lights=1,
+                     use_spot=True)
+    finally:
+        for tmod, attr, sweep in reversed(saved):
+            setattr(tmod, attr, sweep)
+    return seen
+
+
 def capture(path, seed, kernel):
     """Record ``kernel``'s inputs on the flagship frames and save them
     with its synthetic cases (on the CPU) to ``path``; for a probe, its
@@ -251,35 +283,21 @@ def capture(path, seed, kernel):
         torch.save(sites, path)
         return sites
 
-    from ugrt_torch.api.renderer import render_frame
     from ugrt_torch.config import RenderConfig
 
     scene, frame_args = flagship_frame(seed)
-    _, attr, trace = KERNELS[kernel]
-    tmod = importlib.import_module(f"ugrt_torch.trace.{trace}")
-    sweep = getattr(tmod, attr)
     sites = {}
-
     for mode in ("windowed", "reference"):
-        def record(*args, **kw):
+        cfg = dataclasses.replace(RenderConfig(), light_grid_mode=mode)
+        calls = record_sweeps(frame_args, cfg,
+                              cfg.pair_capacity(scene.num_faces), (kernel,))
+        for args, kw in calls[kernel]:
             box = bool(kw.get("box"))
             name = (f"{mode} {'box' if box else 'key'}" if kernel == "k3"
                     else mode)
             sites.setdefault(name, dict(
                 args=[x.cpu() for x in args],
                 kw=dict(box=box) if kernel == "k3" else {}))
-            return sweep(*args, **kw)
-
-        cfg = dataclasses.replace(RenderConfig(), light_grid_mode=mode)
-        setattr(tmod, attr, record)
-        try:
-            # The eager body of Renderer.render's program (a capture
-            # cannot copy its inputs to the host).
-            render_frame(*frame_args, cfg=cfg,
-                         capacity=cfg.pair_capacity(scene.num_faces),
-                         num_lights=1, use_spot=True)
-        finally:
-            setattr(tmod, attr, sweep)
     if kernel == "k1":
         sites["skewed"] = dict(args=list(skewed_primary_case("cpu", seed)),
                                kw={})
