@@ -16,16 +16,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
     K1/K2 bitwise, K3 exact; K1 also on its synthetic skewed case (one
     ray block spanning 119 windows beside empty ranges and two-cell
     blocks) at every chunk size, K3 on its skewed case (hundreds of
-    windows) and on its all-occluded twin.  Prints mismatches, CUDA-event
-    ms of kernel vs plain (and, by torch.profiler, of the CUDA kernel
-    alone beside the host time of a call), the (ray, row) tests the
-    inputs need against those the kernel walks (K1 and K2: counted by
-    the kernels' counting builds, with K1's work items, chunk and
-    longest range, and the tests K2's warps skip at the footprint, the
-    t-free and the could-win votes and the divisions they take), and the
-    bound: the larger of the
-    needed flops at the card's published f32 peak and the bytes at its
-    memory rate.
+    windows) and on its all-occluded twin, in both of its walks, and on
+    its reference-like case (a few cells of long ranges, most rays
+    occluded at random rows, some never) in the serial walk at chunks 1,
+    2, 4 and 8.  Prints mismatches, CUDA-event ms of kernel vs plain (the
+    plain versions on the frames' sites; by torch.profiler, of the CUDA
+    kernel alone beside the host time of a call), the (ray, row) tests
+    the inputs need (K3: every admitted test of a ray no row occludes,
+    one of each shadowed ray) against the lane slots of the warp steps
+    the kernel ran (counted by each kernel's counting build, with K1's
+    work items, chunk and longest range, the tests K2's warps skip at
+    the footprint, the t-free and the could-win votes and the divisions
+    they take, and K3's counts: items, steps skipped and executed, live
+    tests, t-free skips, divisions, hints tried and hit, rays its second
+    pass walked), and the bound: the larger of the needed flops at the
+    card's published f32 peak and the bytes at its memory rate.
  4. Renders the Cornell box at 128^2 on the card and on the CPU (where
     the sweeps run their plain versions); at most 0.1% of pixels of the
     u8 image and of the shadow mask may differ.  The CPU frame is held
@@ -314,9 +319,10 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def keyed_tests(tri, key_col, rays, ray_key_col):
-    """Sum over rays of the real rows (not all-zero coefficients) whose
-    cell key equals the ray's."""
+def keyed_tests(tri, key_col, rays, ray_key_col, only=None):
+    """Sum over rays (those where the [NB, 128] mask ``only`` holds, if
+    given) of the real rows (not all-zero coefficients) whose cell key
+    equals the ray's."""
     import torch
 
     rows = tri.reshape(-1, tri.shape[-1])
@@ -325,19 +331,24 @@ def keyed_tests(tri, key_col, rays, ray_key_col):
     rk = rays.reshape(-1, rays.shape[-1])[:, ray_key_col].long()
     size = int(max(int(keys.max()), int(rk.max()), 0)) + 1
     counts = torch.bincount(keys[real & (keys >= 0)], minlength=size)
-    rk = rk[rk >= 0]
-    return int(counts[rk].sum())
+    keep = rk >= 0
+    if only is not None:
+        keep &= only.reshape(-1)
+    return int(counts[rk[keep]].sum())
 
 
-def box_tests(boxes, rays, gx_col, grid):
-    """Sum over rays of the rows whose footprint box (x0, x1, y0, y1)
-    holds the ray's cell (gx, gy), by a summed-area table of the rays'
-    cells; empty boxes (x0 > x1) count nothing."""
+def box_tests(boxes, rays, gx_col, grid, only=None):
+    """Sum over rays (those where the [NB, 128] mask ``only`` holds, if
+    given) of the rows whose footprint box (x0, x1, y0, y1) holds the
+    ray's cell (gx, gy), by a summed-area table of the rays' cells; empty
+    boxes (x0 > x1) count nothing."""
     import torch
 
     r = rays.reshape(-1, rays.shape[-1])
     gx, gy = r[:, gx_col].long(), r[:, gx_col + 1].long()
     ok = (gx >= 0) & (gx < grid) & (gy >= 0) & (gy < grid)
+    if only is not None:
+        ok &= only.reshape(-1)
     hist = torch.bincount(gx[ok] * grid + gy[ok], minlength=grid * grid)
     sat = torch.zeros((grid + 1, grid + 1), dtype=torch.int64,
                       device=rays.device)
@@ -360,10 +371,13 @@ def window_walk(w_lo, w_hi, nw):
     return n.clamp(min=0)
 
 
-def sweep_work(site, args, kw, grid):
+def sweep_work(site, args, kw, grid, out):
     """(needed tests, walked tests, flops, bytes, what the work is) of one
-    captured sweep call.  K1 and K2 walk what their counting builds
-    report; K3 every row of every window of its ranges."""
+    captured sweep call, whose plain version returned ``out``.  K1 and K2
+    need every admitted test (a lex-min); K3, an OR, needs every admitted
+    test of the rays no row occludes and one test of each shadowed ray.
+    Walked tests are the lane slots of the warp steps that each kernel's
+    counting build reports it ran."""
     if site.startswith("primary_sweep"):
         from ugrt_torch.kernels import _plain
         from ugrt_torch.kernels import primary_sweep as k1
@@ -397,17 +411,22 @@ def sweep_work(site, args, kw, grid):
                 f"{stats['skipped_before_division']} at the t-free vote and "
                 f"{stats['skipped_could_not_win']} at the could-win vote; "
                 f"{stats['divided']} tests take the division")
+    from ugrt_torch.kernels import shadow_sweep as k3
+
     tri, rays, w_lo, w_hi = args
     walk = window_walk(w_lo, w_hi, tri.shape[0])
+    shadowed = out[0] != 0
     if kw.get("box"):
-        need = box_tests(tri[..., 11:15], rays, 5, grid)
+        need = box_tests(tri[..., 11:15], rays, 5, grid, only=~shadowed)
     else:
-        need = keyed_tests(tri, 10, rays, 4)
-    walked = int(walk.sum()) * tri.shape[1] * 128
+        need = keyed_tests(tri, 10, rays, 4, only=~shadowed)
+    need += int(shadowed.sum())
+    stats = k3.shadow_sweep_stats(*args, **kw)
+    walked = 32 * stats["executed_steps"]
     return (need, walked, need * FLOPS_K3,
             nbytes(*args) + rays.shape[0] * 128 * 4,
-            f"{int(walk.sum())} block x window items, max "
-            f"{int(walk.max())} per block")
+            f"{int(walk.sum())} block x window pairs, max "
+            f"{int(walk.max())} per block; counts {stats}")
 
 
 def kernel_name(mangled):
@@ -503,8 +522,8 @@ def kernel_phase(scene, flagship, camera, light):
     from ugrt_torch.api.renderer import Renderer
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
-    from ugrt_torch.micro.k3_chunks import (device_ms, skewed_case,
-                                            skewed_primary_case)
+    from ugrt_torch.micro.k3_chunks import (device_ms, reference_case,
+                                            skewed_case, skewed_primary_case)
 
     sites = {}
     for mode, prefix in (("windowed", ""), ("reference", "reference: ")):
@@ -524,10 +543,19 @@ def kernel_phase(scene, flagship, camera, light):
         sites[f"primary_sweep skewed chunk={chunk}"] = (
             k1.primary_sweep, k1.primary_sweep_plain,
             skewed_primary_case("cuda", 0), dict(cfg=flagship, chunk=chunk))
+    # K3's synthetic cases in both walks; the reference-like case at
+    # every chunk size in the walk the reference grid's key site takes.
     for name, occ in (("skewed", False), ("skewed all-occluded", True)):
-        sites[f"shadow_sweep {name}"] = (
+        for serial in (False, True):
+            sites[f"shadow_sweep {name}{' serial' if serial else ''}"] = (
+                k3.shadow_sweep, k3.shadow_sweep_plain,
+                skewed_case("cuda", 0, occ), dict(cfg=flagship,
+                                                  serial=serial))
+    for chunk in (1, 2, 4, 8):
+        sites[f"shadow_sweep reference-like chunk={chunk}"] = (
             k3.shadow_sweep, k3.shadow_sweep_plain,
-            skewed_case("cuda", 0, occ), dict(cfg=flagship))
+            reference_case("cuda", 0),
+            dict(cfg=flagship, chunk=chunk, serial=True))
 
     results = {}
     for site, (fn, plain, a, kw) in sites.items():
@@ -545,13 +573,15 @@ def kernel_phase(scene, flagship, camera, light):
         kernel_ms = sum(v for k, v in device_ms(lambda: fn(*a, **kw)).items()
                         if "sweep" in k)
         host = host_ms(lambda: fn(*a, **kw), 20)
-        # The plain versions are timed on the sites the kernels line
-        # reports (the windowed frame's) only: they walk every item.
-        plain_ms = (cuda_ms(lambda: plain(*a, **kw), 2) if site in expect
+        # The plain versions are timed on the frames' sites only (they
+        # walk every item): the windowed frame's, which the kernels line
+        # sums, and K3's at the reference grid's key site.
+        plain_ms = (cuda_ms(lambda: plain(*a, **kw), 2)
+                    if site in expect or site == "reference: shadow_sweep"
                     else float("nan"))
         need, walked, flops, nbyte, items = sweep_work(site.split(": ")[-1],
                                                        a, kw,
-                                                       flagship.grid_x)
+                                                       flagship.grid_x, out_p)
         b_ms, b_by = bound(flops, nbyte)
         shapes = ", ".join("x".join(str(d) for d in x.shape) or "scalar"
                            for x in a if isinstance(x, torch.Tensor))
@@ -1973,7 +2003,7 @@ def memory_of(fn):
 # K1-K3's and D1's CUDA kernels by name, as torch.profiler lists them.
 SWEEP_KERNELS = {"primary_sweep": r"(?<!heavy_)primary_sweep_kernel",
                  "heavy_primary_sweep": r"heavy_primary_sweep_kernel",
-                 "shadow_sweep": r"shadow_sweep_kernel"}
+                 "shadow_sweep": r"shadow_sweep(_serial)?_kernel"}
 DDA_KERNEL = {"uniform_dda": r"uniform_dda_kernel"}
 
 
@@ -2737,7 +2767,9 @@ def main(argv=None):
     say(f"phase 13 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
 
-    def entry(name, sites_, source, replaces):
+    def entry(name, sites_, source, replaces, more=()):
+        # The numbers sum the windowed frame's sites (``sites_``); the
+        # reference frame's (``more``) are reported beside them.
         rs = [results[s] for s in sites_]
         b_ms = sum(r["bound_ms"] for r in rs)
         return {"name": name, "route": "cuda", "source": source,
@@ -2758,7 +2790,7 @@ def main(argv=None):
                 "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
                 "needed_tests": sum(r["needed_tests"] for r in rs),
                 "library_ms": None, "library_none": NO_LIBRARY[name],
-                "sites": {s: results[s] for s in sites_}}
+                "sites": {s: results[s] for s in (*sites_, *more)}}
 
     kernels = [
         entry("primary_sweep", ["primary_sweep"],
@@ -2769,7 +2801,9 @@ def main(argv=None):
               "ugrt/trace/pallas_tracer.py:641"),
         entry("shadow_sweep", ["shadow_sweep", "shadow_sweep box=True"],
               "ugrt_torch/csrc/shadow_sweep.cu",
-              "ugrt/trace/pallas_tracer.py:390"),
+              "ugrt/trace/pallas_tracer.py:390",
+              more=["reference: shadow_sweep",
+                    "reference: shadow_sweep box=True"]),
     ]
     main_dda = dda["flagship reference"]
     kernels.append({

@@ -237,8 +237,9 @@ def test_heavy_primary_sweep_synthetic_on_card(card):
 def test_shadow_sweep_skewed_on_card(card, all_occluded):
     """K3 on the skewed case (one ray block spanning 300 windows beside
     empty ranges and a range past the end) and on its all-occluded twin
-    (every item can stop early), at every chunk size: exactly equal to
-    the plain version, twice in a row (bitwise repeatable)."""
+    (every item can stop early), at every chunk size and in both walks:
+    exactly equal to the plain version, twice in a row (bitwise
+    repeatable)."""
     from ugrt_torch.kernels import shadow_sweep as k3
     from ugrt_torch.micro.k3_chunks import skewed_case
 
@@ -246,11 +247,52 @@ def test_shadow_sweep_skewed_on_card(card, all_occluded):
     want = k3.shadow_sweep_plain(*args, cfg=SMALL)
     assert int(want.sum()) > 1000
     for chunk in (1, 2, 4, 8):
-        before = k3.shadow_sweep.launches
-        got = [k3.shadow_sweep(*args, cfg=SMALL, chunk=chunk)
-               for _ in range(2)]
-        assert k3.shadow_sweep.launches == before + 2
-        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+        for serial in (False, True):
+            before = k3.shadow_sweep.launches
+            got = [k3.shadow_sweep(*args, cfg=SMALL, chunk=chunk,
+                                   serial=serial) for _ in range(2)]
+            assert k3.shadow_sweep.launches == before + 2
+            assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+def test_shadow_sweep_reference_like_on_card(card):
+    """K3 on the reference-like case (micro.k3_chunks.reference_case) in
+    both walks at every chunk size: exactly equal to the plain version;
+    the counting build reports steps and tests consistent with the
+    inputs, and launches no kernel of the main path."""
+    from ugrt_torch.kernels import _plain
+    from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.micro.k3_chunks import reference_case
+
+    args = reference_case(card, 0)
+    want = k3.shadow_sweep_plain(*args, cfg=SMALL)
+    live = int((args[1][:, :, 4] >= 0).sum())
+    assert 0.6 * live < int(want.sum()) < live
+    for chunk in (1, 2, 4, 8, 16):
+        for serial in (False, True):
+            got = k3.shadow_sweep(*args, cfg=SMALL, chunk=chunk,
+                                  serial=serial)
+            assert torch.equal(got, want), (chunk, serial)
+            before = k3.shadow_sweep.launches
+            st = k3.shadow_sweep_stats(*args, cfg=SMALL, chunk=chunk,
+                                       serial=serial)
+            assert k3.shadow_sweep.launches == before
+            assert set(st) == set(k3.STATS) and st["items"] > 0
+            assert 0 < st["live_tests"] <= 32 * st["executed_steps"]
+            assert st["divided_tests"] <= st["live_tests"]
+            assert st["hint_hits"] <= st["hint_steps"]
+            if serial:
+                # A ray, sentinel rays of a live block too, goes to the
+                # second pass at most once a work item of its block; at
+                # chunk 16 a block's whole range is one item.
+                items = int(_plain.chunk_item_end(args[2], args[3],
+                                                  args[0].shape[0],
+                                                  chunk)[-1])
+                assert st["hint_hits"] > 0
+                assert st["deferred_rays"] <= 128 * items
+                assert chunk < 16 or st["deferred_rays"] < live
+            else:
+                assert st["hint_steps"] == st["deferred_rays"] == 0
 
 
 # A second light on another side of the Cornell box.

@@ -23,6 +23,7 @@ import torch
 from ugrt.config import RenderConfig
 from ugrt.core import camera as cam
 from ugrt.grid import build as gbuild
+from ugrt.scene import procedural
 from ugrt.trace import heavy as theavy
 from ugrt.trace import pallas_tracer as pt
 from ugrt.trace import primary as tprim
@@ -275,16 +276,16 @@ def _shadow_inputs(scene, camera, light, cfg, cap, heavy_threshold):
     return sc, lcc_t, lgrid, rows.reshape(-1, 128, 8), first, last
 
 
-# box=True runs with every face heavy (threshold 1): at threshold 4 no
-# heavy face of this scene occludes anything.
-@pytest.mark.parametrize("box,heavy_threshold", [(False, 4), (True, 1)])
-def test_shadow_sweep_plain_matches_pallas(small_cfg, cornell,
-                                           generic_camera, generic_light,
-                                           box, heavy_threshold):
-    cfg = small_cfg
-    cap = cfg.pair_capacity(cornell.num_faces) * 16
+def _shadow_sweep_vs_pallas(cfg, scene, camera, light, box,
+                            heavy_threshold, win=256):
+    """K3's plain version against ugrt's Pallas shadow sweep (interpret
+    mode) on the sorted shadow rows of ugrt's primary: at the cell-key
+    site over ``win``-wide windows of the light grid's pairs, or (box) at
+    the footprint-box site over 128-wide heavy windows.  Returns the rows
+    and window ranges the two were given."""
+    cap = cfg.pair_capacity(scene.num_faces) * 16
     sc, lcc, lgrid, rows, first, last = _shadow_inputs(
-        cornell, generic_camera, generic_light, cfg, cap, heavy_threshold)
+        scene, camera, light, cfg, cap, heavy_threshold)
     nb = rows.shape[0]
     sentinel = cfg.cell_sentinel
     if box:
@@ -306,11 +307,11 @@ def test_shadow_sweep_plain_matches_pallas(small_cfg, cornell,
         hi = torch.where(live, lgrid.cell_offset[k2_] + lgrid.cell_count[k2_],
                          0)
         tri = tw.pack_tri_windows_coeff(sc["vertices"], sc["faces"], lgrid,
-                                        lcc[:3], win=256)
-        w_lo, w_hi = tw.window_span(lo, hi, 256)
+                                        lcc[:3], win=win)
+        w_lo, w_hi = tw.window_span(lo, hi, win)
         wi, wb, _, total = pt.make_windows(
             jnp.asarray(_np(lo)), jnp.asarray(_np(hi)),
-            6 * nb + tri.shape[0] + 256, tri.shape[0], win=256)
+            6 * nb + tri.shape[0] + win, tri.shape[0], win=win)
     sh_p = k3.shadow_sweep_plain(tri, rows, w_lo, w_hi,
                                  cfg=bridge.render_config(cfg), box=box)
     guard = np.zeros((1, 128, 8), np.float32)
@@ -323,6 +324,35 @@ def test_shadow_sweep_plain_matches_pallas(small_cfg, cornell,
         sh_j = np.where((_np(w_hi) >= _np(w_lo))[:, None], sh_j, 0)
     assert _np(sh_p).sum() > 100
     np.testing.assert_array_equal(sh_j, _np(sh_p))
+    return rows, w_lo, w_hi
+
+
+# box=True runs with every face heavy (threshold 1): at threshold 4 no
+# heavy face of this scene occludes anything.
+@pytest.mark.parametrize("box,heavy_threshold", [(False, 4), (True, 1)])
+def test_shadow_sweep_plain_matches_pallas(small_cfg, cornell,
+                                           generic_camera, generic_light,
+                                           box, heavy_threshold):
+    _shadow_sweep_vs_pallas(small_cfg, cornell, generic_camera,
+                            generic_light, box, heavy_threshold)
+
+
+def test_shadow_sweep_plain_matches_pallas_reference_site(
+        tiny_cfg, generic_camera, generic_light):
+    """The cell-key site shaped as the reference light grid gives it on
+    the flagship (its pi extent packs the rays into a few cells, each of
+    many rows): a finer Cornell box (664 faces) under an 8x8 light grid,
+    128-wide windows, so that rays fall into 9 cells, ranges span several
+    windows and blocks straddle two cells."""
+    scene = procedural.cornell_box(subdiv=8)
+    rows, w_lo, w_hi = _shadow_sweep_vs_pallas(
+        tiny_cfg, scene, generic_camera, generic_light, False, 4, win=128)
+    cells = rows[:, :, 4]
+    assert len(torch.unique(cells[cells >= 0])) <= 12
+    assert int((w_hi - w_lo).max()) >= 2
+    straddle = ((cells[:, 0] >= 0) & (cells[:, -1] >= 0)
+                & (cells[:, 0] != cells[:, -1]))
+    assert bool(straddle.any())
 
 
 def test_window_packing_matches_ugrt(small_cfg, cornell, generic_camera,
@@ -407,6 +437,28 @@ def test_cpu_tensors_take_the_plain_path(small_cfg, cornell,
         k1.primary_sweep(tri.double(), rows, w_lo, w_hi, cfg=cfg)
     with pytest.raises(ValueError):
         k3.shadow_sweep(tri, rows[:, :64], w_lo, w_hi, cfg=cfg)
+
+
+def test_shadow_sweep_stats_needs_the_card():
+    """K3's counting build counts what the CUDA kernel runs: on CPU
+    tensors it raises instead of reporting the plain version's work, and
+    it names one count per entry of the kernel's enum Stat; the wrapper
+    sizes the kernel's hint slots as the kernel reads them."""
+    import re
+
+    from ugrt_torch.kernels import _build
+
+    cfg = bridge.render_config(RenderConfig())
+    tri = torch.zeros((1, 256, 16))
+    rows = torch.zeros((1, 128, 8))
+    lo = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k3.shadow_sweep_stats(tri, rows, lo, lo, cfg=cfg)
+    src = (_build.CSRC_DIR / "shadow_sweep.cu").read_text()
+    enum = re.search(r"enum Stat \{(.*?)kNumStats", src, re.S).group(1)
+    assert len(re.findall(r"^\s*k\w+,", enum, re.M)) == len(k3.STATS)
+    hints = re.search(r"constexpr int kHints = (\d+);", src).group(1)
+    assert int(hints) == k3.HINTS
 
 
 def test_build_keeps_the_probes_apart():

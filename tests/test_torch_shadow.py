@@ -29,7 +29,8 @@ from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
 from ugrt_torch.kernels import _plain as kplain
 from ugrt_torch.kernels import shadow_sweep as k3
-from ugrt_torch.micro.k3_chunks import skewed_case
+from ugrt_torch.micro.k3_chunks import (occluder_profile, reference_case,
+                                       skewed_case)
 from ugrt_torch.trace import shadow as tshadow_t
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -156,11 +157,16 @@ def test_trace_shadow_chunked(monkeypatch, small_cfg, cornell, generic_camera,
                               generic_light, size, site):
     calls = []
 
-    def sweep(tri, rays, w_lo, w_hi, *, cfg, box=False, chunk=None):
-        assert chunk == (tshadow_t.HCHUNK if box else tshadow_t.SCHUNK)
+    def sweep(tri, rays, w_lo, w_hi, *, cfg, box=False, chunk=None,
+              serial=False):
+        # The reference grid's key site takes the serial walk, with items
+        # of a block's whole range; the others the block walk.
+        assert serial == (site == "key" and not box)
+        assert chunk == (tshadow_t.HCHUNK if box else tshadow_t.SERIAL_CHUNK
+                         if serial else tshadow_t.SCHUNK)
         calls.append((box, tri.shape[0], w_lo, w_hi))
         return k3.shadow_sweep(tri, rays, w_lo, w_hi, cfg=cfg, box=box,
-                               chunk=size)
+                               chunk=size, serial=serial)
 
     monkeypatch.setattr(tshadow_t, "shadow_sweep", sweep)
     mode, threshold = ("reference", None) if site == "key" else (
@@ -250,3 +256,86 @@ def test_trace_shadow_backend(small_cfg, cornell, generic_camera,
     assert int(lg.heavy_count) > 0 and want.sum() > 100
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(sh_j, want)
+
+
+@pytest.mark.parametrize("chunk", [2, 4, 8])
+def test_shadow_sweep_reference_like(chunk):
+    """K3's reference-like case (a few cells of long ranges, most rays
+    occluded at random rows of their range, some never, blocks that
+    straddle two cells): the chunked sweep equals the sweep of one item a
+    window and of one item a block, in either walk (``serial`` changes
+    only the kernel's order of tests)."""
+    cfg = bridge.render_config(RenderConfig())
+    tri, rays, w_lo, w_hi = reference_case("cpu", 0)
+    nw = tri.shape[0]
+    _assert_chunks_cover(w_lo, w_hi, nw, chunk)
+    live = rays[:, :, 4] >= 0
+    straddle = live[:, 0] & live[:, -1] & (rays[:, 0, 4] != rays[:, -1, 4])
+    assert bool(straddle.any()) and int((w_hi - w_lo).max()) >= 4
+    want = k3.shadow_sweep_plain(tri, rays, w_lo, w_hi, cfg=cfg, chunk=1)
+    for serial in (False, True):
+        got = k3.shadow_sweep(tri, rays, w_lo, w_hi, cfg=cfg, chunk=chunk,
+                              serial=serial)
+        assert torch.equal(got, want)
+    assert torch.equal(k3.shadow_sweep_plain(tri, rays, w_lo, w_hi, cfg=cfg,
+                                             chunk=nw), want)
+    occluded = int(want.sum())
+    assert 0.6 * int(live.sum()) < occluded < int(live.sum())
+    assert not bool(want[~live].any())
+
+
+def test_occluder_profile_matches_a_walk():
+    """``k3_chunks.occluder_profile`` on the reference-like case equals a
+    walk of each block's range ray by ray: the shadowed and never
+    occluded rays, the admitted tests, the tests up to each ray's first
+    occluder, the tests the OR needs, its row and rank there, and how often a shadowed ray is
+    occluded in the 32-row group that first occluded the ray before it in
+    its warp."""
+    cfg = bridge.render_config(RenderConfig())
+    tri, rays, w_lo, w_hi = reference_case("cpu", 0)
+    prof = occluder_profile(tri, rays, w_lo, w_hi, cfg)
+    nw, win = tri.shape[0], tri.shape[1]
+    shadowed = never = admitted = stop = needed = 0
+    rows, ranks, same = [], [], [0, 0]
+    for b in range(rays.shape[0]):
+        lo, hi = max(int(w_lo[b]), 0), min(int(w_hi[b]), nw - 1)
+        live = rays[b, :, 4] >= 0
+        if hi < lo:
+            never += int(live.sum())
+            continue
+        t = tri[lo:hi + 1].reshape(1, -1, 16)
+        occ = k3.occludes(rays[b][None], t, cfg=cfg)[0]      # [128, rows]
+        adm = t[0, :, 10][None] == rays[b, :, 4, None]
+        first = torch.where(occ, torch.arange(occ.shape[1]),
+                            occ.shape[1]).amin(dim=1)
+        for i in range(128):
+            if not live[i]:
+                continue
+            admitted += int(adm[i].sum())
+            if first[i] == occ.shape[1]:
+                never += 1
+                stop += int(adm[i].sum())
+                needed += int(adm[i].sum())
+                continue
+            f = int(first[i])
+            shadowed += 1
+            needed += 1
+            rows.append(f)
+            ranks.append(int(adm[i, :f].sum()))
+            stop += ranks[-1] + 1
+            if i % 32 and live[i - 1] and first[i - 1] < occ.shape[1]:
+                g = int(first[i - 1]) // 32
+                same[1] += 1
+                same[0] += int(occ[i, 32 * g:32 * g + 32].any())
+    assert (prof["shadowed"], prof["never_occluded"],
+            prof["admitted_tests"], prof["stop_at_first_tests"],
+            prof["needed_tests"]) == (shadowed, never, admitted, stop,
+                                      needed)
+    assert prof["same_group_as_previous_lane"] == same
+    q = torch.tensor(rows, dtype=torch.float64)
+    r = torch.tensor(ranks, dtype=torch.float64)
+    for pct in (10, 50, 90):
+        assert prof["first_occluder_walk_row"][pct] == round(
+            float(torch.quantile(q, pct / 100)), 3)
+        assert prof["first_occluder_admitted_rank"][pct] == round(
+            float(torch.quantile(r, pct / 100)), 3)

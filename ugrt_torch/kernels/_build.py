@@ -64,8 +64,8 @@ SIGNATURES = {
                                _P, _P),
         "ugrt_heavy_primary_sweep": (_P, _I, _P, _P, _I, _F, _I, _P, _P, _P,
                                      _P),
-        "ugrt_shadow_sweep": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _F,
-                              _I, _I, _P, _P, _P),
+        "ugrt_shadow_sweep": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _F,
+                              _F, _I, _I, _I, _P, _P, _I, _P, _P),
         "ugrt_uniform_dda": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
                              _P, _P, _P, _P),

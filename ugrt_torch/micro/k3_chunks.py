@@ -5,36 +5,45 @@ workloads, per variant, against another tree's kernel.
 
     python -m ugrt_torch.micro.k3_chunks [--kernel k1|k2|k3|d1|s2|s3]
         [--parent DIR] [--chunks 1 2 4 8] [--out results.json]
-        [--inputs saved.pt] [--seed N]
+        [--inputs saved.pt] [--seed N] [--frames]
 
 Renders one flagship frame (1024², 128x128 grid, the 75k-triangle
-procedural cathedral, spot) per light-grid mode, windowed and
-reference, and records the inputs of the chosen kernel: K1 (primary
-sweep) and K2 (heavy primary sweep) once per frame (the primary grid
-does not depend on the light-grid mode), K3 (shadow sweep) at both of
-its sites (cell key and footprint box).  It adds synthetic cases: for K1
+procedural cathedral, spot) per light-grid mode, windowed and reference,
+and records the inputs of the chosen kernel: K1 (primary sweep) and K2
+(heavy primary sweep) once per frame (the primary grid does not depend
+on the light-grid mode), K3 (shadow sweep) at both of its sites (cell
+key and footprint box).  It adds synthetic cases: for K1
 ``skewed_primary_case`` (one ray block whose cells span 120 windows next
 to empty ranges and two-cell blocks), for K3 ``skewed_case`` (one ray
 block whose cells span hundreds of windows next to blocks with empty
-ranges, and the same with every real ray occluded).  S2 (``tile_sweep``)
-and S3 (``heavy_sweep_v1/v2/v3``) take their scripts' workloads
-(``micro.pallas_micro``, ``micro.micro_heavy``) instead.  D1 takes the
-reflection rays of one flagship reflective frame (reference mode, spot,
-ugrt's reflection defaults: 32^3 uniform grid, batches of 32 up to 8),
-in pixel order and in a seeded random order (a warp's lanes in distinct
-cells), each tree given the face table as wide as its kernel reads it
-and the image width where its wrapper takes one.  Then it times
+ranges, and the same with every real ray occluded) and
+``reference_case`` (shaped like the reference light grid's key site: a
+few cells of long ranges, most rays occluded at random rows of their
+range, some never, blocks that straddle two cells).  For each of K3's
+cell-key sites and cases it prints ``occluder_profile``: where each ray
+meets its first occluder, through the plain version's tests.  S2
+(``tile_sweep``) and S3 (``heavy_sweep_v1/v2/v3``) take their scripts'
+workloads (``micro.pallas_micro``, ``micro.micro_heavy``) instead.  D1
+takes the reflection rays of one flagship reflective frame (reference
+mode, spot, ugrt's reflection defaults: 32^3 uniform grid, batches of 32
+up to 8), in pixel order and in a seeded random order (a warp's lanes in
+distinct cells), each tree given the face table as wide as its kernel
+reads it and the image width where its wrapper takes one.  Then it times
 the kernel on those inputs in fresh processes, one per tree: with
 ``--parent DIR`` (an unpacked checkout of another commit) in the order
 parent, this tree, this tree, parent, so that the two kernels meet the
 card in turns.  A kernel with a ``chunk`` argument is timed at every
 chunk size, S2 at every variant and ``wchunk`` (8, 64), S3 at every
 layout and ``mb``, others once.  Every result is held against that
-tree's plain version on the same inputs (K1, K2, D1, S2, S3 bitwise;
-K3 exactly).  Prints one line per site and process, with the device time
-of each CUDA kernel of a call (torch.profiler) and the warp counts of
-the counting builds a tree has (K1, K2, D1, S3), and writes them all to
-``--out``.
+tree's plain version on the same inputs (K1, K2, D1, S2, S3 bitwise; K3
+exactly; K3 in both of its walks where the tree has them, its ``serial``
+walk labelled so).  Prints one line per site and process, with the
+device time of each CUDA kernel of a call (torch.profiler) and the
+counts of the counting builds a tree has (K1, K2, K3, D1, S3), and
+writes them all to ``--out``.  With ``--frames``, then, in the same
+turns, each tree's flagship frame and reflective frame with the
+reference light grid (``bench_reflective.run``) and ``python -m
+ugrt_torch.bench --pi-extent --skip-parity``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,12 @@ SKEW_ROWS_PER_CELL = 48        # 300 windows of 256 rows
 SKEW_NORMAL_BLOCKS = 24
 SKEW_EMPTY_BLOCKS = 16
 SKEW_WIN = 256
+# K3's reference-like case: rows of each light cell (several windows of
+# 256 each), rays of each cell, occluding triangles among each cell's
+# rows.
+REF_ROWS = (700, 1100, 450, 1300, 900)
+REF_RAYS = (1000, 1500, 700, 1300, 900)
+REF_OCCLUDERS = 24
 # K1's synthetic case: 1280 cells of 12 pair rows, 120 windows of 128.
 PSKEW_CELLS = 1280
 PSKEW_ROWS_PER_CELL = 12
@@ -157,6 +172,74 @@ def skewed_case(device, seed=0, all_occluded=False):
         rays[b, :, 4] = -1.0 if cells is None else cells
     w_lo, w_hi = _ranges(blocks, SKEW_ROWS_PER_CELL, SKEW_WIN, nw)
     return _to(device, tri, rays, w_lo, w_hi)
+
+
+def reference_case(device, seed=0):
+    """(tri [NW, 256, 16], rays [NB, 128, 8], w_lo, w_hi) shaped like K3's
+    cell-key site under the reference light grid, from numpy ``seed``.
+
+    REF_CELLS cells hold long runs of rows (REF_ROWS, several windows of
+    256 each), sorted by cell as the light grid's pair array, the last
+    window padded with never-admitted rows (key -1, zero coefficients);
+    the rays of each cell (REF_RAYS) fill consecutive 128-ray blocks, so
+    some blocks straddle two cells, and sentinel rays (cell -1, an empty
+    range) fill the last block.  A ray is a pixel (X, Y) of its cell's
+    scanline grid, direction (X, Y, 1) normalized, 3 to 10 from its
+    point.  Each cell's rows are random triangles whose t lies far past
+    every point (they never occlude, but some pass the u and v tests),
+    and among them, at random rows, REF_OCCLUDERS triangles of the plane
+    z = 1 over random parts of the (X, Y) grid: det = d_z, u = s (X - x0),
+    v = s (Y - y0), t = 1 / d_z.  So most rays are occluded at random rows
+    of their range, neighbouring rays often by the same row, and some
+    (about one in ten) by none."""
+    rng = np.random.default_rng(seed)
+    starts = np.concatenate([[0], np.cumsum(REF_ROWS)])
+    n_rows = int(starts[-1])
+    tri = np.zeros((-(-n_rows // SKEW_WIN) * SKEW_WIN, 16), np.float32)
+    tri[:, 10] = -1.0                            # padding: no ray admits it
+    tri[:, 11:15] = (1.0, 0.0, 1.0, 0.0)         # empty footprint box
+    tri[:n_rows, 0:9] = rng.standard_normal((n_rows, 9))
+    tri[:n_rows, 9] = rng.choice([-1.0, 1.0], n_rows) * 1e4
+    side = int(np.ceil(np.sqrt(max(REF_RAYS))))
+    for cell, (r0, r1) in enumerate(zip(starts[:-1], starts[1:])):
+        tri[r0:r1, 10] = cell
+        rows = rng.choice(np.arange(r0, r1), REF_OCCLUDERS, replace=False)
+        x0 = rng.uniform(-1.2, 1.0, REF_OCCLUDERS)
+        y0 = rng.uniform(-1.2, 1.0, REF_OCCLUDERS)
+        s = 1.0 / rng.uniform(0.5, 1.3, REF_OCCLUDERS)    # legs 1 / s
+        tri[rows, 0:10] = np.stack(
+            [np.zeros_like(s), np.zeros_like(s), np.ones_like(s),
+             s, np.zeros_like(s), -s * x0,
+             np.zeros_like(s), s, -s * y0, np.ones_like(s)], axis=1)
+    tri = tri.reshape(-1, SKEW_WIN, 16)
+    nw = tri.shape[0]
+
+    n_real = sum(REF_RAYS)
+    nb = -(-(n_real + 1) // 128)
+    rays = np.zeros((nb * 128, 8), np.float32)
+    rays[:, 4] = -1.0
+    rays[:, 0:3] = (0.0, 0.0, 1.0)
+    cells = np.full(nb * 128, -1)
+    at = 0
+    for cell, n in enumerate(REF_RAYS):
+        i = np.arange(n)
+        # The cell's pixels in scanline order over [-1, 1]^2.
+        xy = np.stack([i % side, i // side], 1) / (side - 1) * 2 - 1
+        d = np.concatenate([xy, np.ones((n, 1))], 1)
+        rays[at:at + n, 0:3] = d / np.linalg.norm(d, axis=1, keepdims=True)
+        rays[at:at + n, 4] = cell
+        cells[at:at + n] = cell
+        at += n
+    rays[:, 3] = rng.uniform(3.0, 10.0, nb * 128)
+    blk = cells.reshape(nb, 128)
+    last = np.where(blk >= 0, blk, -1).max(axis=1)
+    live = last >= 0
+    lo = np.where(live, starts[np.clip(blk[:, 0], 0, None)], 0)
+    hi = np.where(live, starts[np.clip(last, 0, None) + 1], 0)
+    w_lo = lo // SKEW_WIN
+    w_hi = np.where(hi > lo, (hi - 1) // SKEW_WIN, w_lo - 1)
+    return _to(device, tri, rays.reshape(nb, 128, 8),
+               w_lo.astype(np.int32), w_hi.astype(np.int32))
 
 
 def skewed_primary_case(device, seed=0):
@@ -297,17 +380,24 @@ def capture(path, seed, kernel):
                     else mode)
             sites.setdefault(name, dict(
                 args=[x.cpu() for x in args],
-                kw=dict(box=box) if kernel == "k3" else {}))
+                kw=dict(box=box) if kernel == "k3" else {},
+                serial=bool(kw.get("serial"))))
     if kernel == "k1":
         sites["skewed"] = dict(args=list(skewed_primary_case("cpu", seed)),
                                kw={})
     if kernel == "k3":
         for name, occ in (("skewed", False), ("skewed all-occluded", True)):
             sites[name] = dict(args=list(skewed_case("cpu", seed, occ)),
-                               kw=dict(box=False))
+                               kw=dict(box=False), serial=False)
+        sites["reference-like"] = dict(args=list(reference_case("cpu", seed)),
+                                       kw=dict(box=False), serial=True)
+        cfg = RenderConfig()
         for name, site in sites.items():
             if not site["kw"]["box"]:
                 print(f"{name}: {gap_items(*site['args'])}", flush=True)
+            prof = occluder_profile(*(x.cuda() for x in site["args"]),
+                                    cfg, box=site["kw"]["box"])
+            print(f"{name}: occluders {json.dumps(prof)}", flush=True)
     torch.save(sites, path)
     return sites
 
@@ -407,6 +497,120 @@ def gap_items(tri, rays, w_lo, w_hi):
     return f"{gap} of {blk.shape[0]} items hold no row of the block's cells"
 
 
+def occluder_profile(tri, rays, w_lo, w_hi, cfg, box=False, group=32):
+    """Where each ray of a K3 site meets its first occluder, through the
+    plain version's tests (``shadow_sweep.occludes``) on the site's own
+    inputs: a dict of the rays with a cell, those shadowed and those no
+    row occludes; the tests they admit; the tests left if every ray
+    stopped at its first occluder; the tests the OR needs (every
+    admitted test of a ray no row occludes, one of each shadowed ray); the first occluder's row in the ray's
+    walk (rows from the start of its block's range) and its rank among
+    the ray's admitted rows, as percentiles; the blocks whose every
+    shadowed-or-not ray is settled in the first window (all occluded
+    there); and how often a shadowed ray is also occluded in the
+    ``group``-row group (aligned in its window) that first occluded the
+    ray before it in its warp, or the last shadowed ray before it."""
+    from ugrt_torch.kernels._plain import window_runs
+    from ugrt_torch.kernels.shadow_sweep import occludes
+
+    dev = rays.device
+    nb, nw, win = rays.shape[0], tri.shape[0], tri.shape[1]
+    lo = torch.clamp(w_lo.long(), min=0)
+    n = torch.clamp(torch.clamp(w_hi.long(), max=nw - 1) - lo + 1, min=0)
+    blocks = torch.arange(nb, device=dev)
+    pair_blk = torch.repeat_interleave(blocks, n)
+    pair_w = (torch.repeat_interleave(lo - (torch.cumsum(n, 0) - n), n)
+              + torch.arange(pair_blk.shape[0], device=dev))
+    q = torch.arange(win, device=dev)
+    n_adm, first_q, adm_before, gmask = [], [], [], []
+    bits = 1 << torch.arange(win // group, device=dev)
+    for blk, t in window_runs(tri, blocks, lo, n):
+        ray = rays[blk]
+        occ = occludes(ray, t, cfg=cfg, box=box)
+        if box:
+            gx, gy = ray[:, :, 5, None], ray[:, :, 6, None]
+            adm = ((gx >= t[:, None, :, 11]) & (gx <= t[:, None, :, 12])
+                   & (gy >= t[:, None, :, 13]) & (gy <= t[:, None, :, 14]))
+        else:
+            adm = t[:, None, :, 10] == ray[:, :, 4, None]
+        fq = torch.where(occ, q, win).amin(dim=2)
+        n_adm.append(adm.sum(dim=2))
+        first_q.append(fq)
+        adm_before.append((adm & (q < fq[..., None])).sum(dim=2))
+        g = occ.reshape(*occ.shape[:2], -1, group).any(dim=3)
+        gmask.append((g.long() * bits).sum(dim=2))
+    n_adm, first_q, adm_before, gmask = (torch.cat(x) for x in (
+        n_adm, first_q, adm_before, gmask))
+    npair = pair_blk.shape[0]
+    # Per ray: its admitted rows, its first occluding pair (npair: none)
+    # and the admitted rows of its block's pairs before that pair.
+    total = torch.zeros((nb, 128), dtype=torch.long, device=dev)
+    total.index_add_(0, pair_blk, n_adm.long())
+    pidx = torch.arange(npair, device=dev)[:, None].expand(-1, 128)
+    first = torch.full((nb, 128), npair, dtype=torch.long, device=dev)
+    first.scatter_reduce_(0, pair_blk[:, None].expand(-1, 128),
+                          torch.where(first_q < win, pidx, npair), "amin")
+    before = torch.cumsum(n_adm.long(), 0) - n_adm.long()
+    start = (torch.cumsum(n, 0) - n).clamp(max=max(npair - 1, 0))
+    live = rays[:, :, 4] >= 0
+    shadowed = live & (first < npair)
+    lane = torch.arange(128, device=dev).expand(nb, -1)
+    f = first.clamp(max=max(npair - 1, 0))
+    fq = first_q[f, lane].long()
+    rank = before[f, lane] - before[start] + adm_before[f, lane]
+    row = (pair_w[f] - lo[:, None]) * win + fq
+    stop_tests = int(torch.where(shadowed, rank + 1, total)[live].sum())
+
+    def pct(x):
+        if not x.numel():
+            return {}
+        x = x.double()
+        return {p: round(float(torch.quantile(x, p / 100)), 3)
+                for p in (10, 25, 50, 75, 90, 99)}
+
+    # The group that first occluded the ray before each one in its warp
+    # (lanes 32k .. 32k + 31 of a block), and that of the last shadowed
+    # ray before it.
+    gid = f * (win // group) + fq // group
+    w_sh = shadowed.reshape(-1, 32)
+    idx = torch.arange(32, device=dev).expand(w_sh.shape[0], -1)
+    last = torch.cummax(torch.where(w_sh, idx, -1), dim=1).values
+    last = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], 1)
+
+    def hint_rate(src):                      # src: [warps, 32] lane or -1
+        ok = w_sh & (src >= 0)
+        s = src.clamp(min=0)
+        g = torch.gather(gid.reshape(-1, 32), 1, s)
+        p_ = g // (win // group)
+        bit = g % (win // group)
+        lanes = torch.arange(128, device=dev).reshape(4, 32).repeat(nb, 1)
+        m = gmask[p_.clamp(max=max(npair - 1, 0)), lanes]
+        hit = ((m >> bit) & 1).bool() & ok
+        return int(hit.sum()), int(ok.sum())
+
+    prev = idx - 1
+    prev = torch.where(torch.gather(w_sh, 1, prev.clamp(min=0)) & (prev >= 0),
+                       prev, -1)
+    h_prev, n_prev = hint_rate(prev)
+    h_last, n_last = hint_rate(last)
+    blk_live = live.any(dim=1)
+    settled = (~live | (shadowed & (first == start[:, None]))).all(dim=1)
+    return dict(
+        rays=int(live.sum()), shadowed=int(shadowed.sum()),
+        never_occluded=int((live & ~shadowed).sum()),
+        admitted_tests=int(total[live].sum()), stop_at_first_tests=stop_tests,
+        needed_tests=int(torch.where(shadowed, 1, total)[live].sum()),
+        first_occluder_walk_row=pct(row[shadowed]),
+        first_occluder_admitted_rank=pct(rank[shadowed]),
+        first_occluder_share_of_admitted=pct(
+            (rank + 1)[shadowed].double() / total[shadowed].double()),
+        walk_rows=pct(((n * win)[:, None].expand(-1, 128))[live]),
+        blocks=int(blk_live.sum()),
+        blocks_occluded_in_first_window=int((settled & blk_live).sum()),
+        same_group_as_previous_lane=[h_prev, n_prev],
+        same_group_as_last_shadowed=[h_last, n_last])
+
+
 def device_ms(fn, iters=5):
     """{CUDA kernel: mean device ms per fn() call} under torch.profiler:
     the wrapper's kernel apart from its small torch ops."""
@@ -446,7 +650,12 @@ def _calls(kernel, chunks):
     mod = importlib.import_module(f"ugrt_torch.kernels.{module}")
     fn, plain = getattr(mod, attr), getattr(mod, f"{attr}_plain")
     stats = getattr(mod, f"{attr}_stats", None)
-    if "chunk" in inspect.signature(fn).parameters:
+    params = inspect.signature(fn).parameters
+    if "serial" in params:
+        # K3's two walks, each at every chunk size.
+        return [(f"{c}{' serial' if s else ''}", fn, dict(chunk=c, serial=s),
+                 plain, {}, stats) for s in (False, True) for c in chunks]
+    if "chunk" in params:
         return [(str(c), fn, dict(chunk=c), plain, {}, stats) for c in chunks]
     return [("None", fn, {}, plain, {}, stats)]
 
@@ -467,7 +676,8 @@ def time_sites(path, kernel, chunks, iters):
         args = [x.cuda() for x in site["args"]]
         kw = dict(site["kw"], **({} if kernel == "s2" else dict(cfg=cfg)))
         rec = dict(site=name, kernel=kernel, tree=os.getcwd(),
-                   card=card_line(), ms={}, mismatches={})
+                   card=card_line(), ms={}, mismatches={},
+                   frame_walk="serial" if site.get("serial") else "block")
         wants = {}
         for label, fn, fkw, plain, pkw, stats in calls:
             key = tuple(sorted(pkw.items()))
@@ -493,6 +703,62 @@ def time_sites(path, kernel, chunks, iters):
     return records
 
 
+def time_frames(iters):
+    """This process's tree (whichever is on the path): the flagship frame
+    and reflective frame with the reference light grid
+    (``bench_reflective.run``, both replays chained), as one JSON line."""
+    import tempfile
+
+    from ugrt_torch.config import RenderConfig
+    from ugrt_torch.micro import bench_reflective
+    from ugrt_torch.micro._common import card_line
+    from ugrt_torch.scene import procedural
+
+    cfg = dataclasses.replace(RenderConfig(), light_grid_mode="reference")
+    scene = procedural.cathedral(num_faces_target=75000)
+    with tempfile.TemporaryDirectory() as d:
+        res = bench_reflective.run(cfg, scene, torch.device("cuda"),
+                                   out_path=os.path.join(d, "frame.png"),
+                                   iters=iters)
+    print(json.dumps(dict(
+        tree=os.getcwd(), card=card_line(), overflow=res["overflow"],
+        reference_frame_ms=res["base_ms"],
+        reference_frame_ms_events=res["base_ms_events"],
+        reflective_frame_ms=res["reflective_ms"],
+        reflective_frame_ms_events=res["reflective_ms_events"])), flush=True)
+
+
+def frames_in_turns(trees, here):
+    """Each tree's reference and reflective frames (``time_frames``) and
+    ``python -m ugrt_torch.bench --pi-extent --skip-parity``, in fresh
+    processes in the order of ``trees``; one record per tree."""
+    records = []
+    for tree in trees:
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        rec = {}
+        for argv in ([str(Path(__file__).resolve()), "--time-frames"],
+                     ["-m", "ugrt_torch.bench", "--pi-extent",
+                      "--skip-parity"]):
+            proc = subprocess.run([sys.executable, *argv], cwd=tree, env=env,
+                                  capture_output=True, text=True,
+                                  check=False)
+            sys.stderr.write(proc.stderr[-4000:])
+            if proc.returncode:
+                raise SystemExit(f"{' '.join(argv)} in {tree} failed "
+                                 f"({proc.returncode})")
+            last = json.loads(proc.stdout.strip().splitlines()[-1])
+            if "detail" in last:
+                rec.update(pi_extent_step_ms=last["detail"]["step_ms_chained"],
+                           pi_extent_step_ms_events=last["detail"][
+                               "step_ms_chained_events"])
+            else:
+                rec.update(last)
+        rec["tree"] = "parent" if tree != here else "this"
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", choices=sorted({*KERNELS, *PROBES, "d1"}),
@@ -508,9 +774,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--time-only", action="store_true",
                     help="time the saved inputs in this process and stop")
+    ap.add_argument("--frames", action="store_true",
+                    help="also time each tree's reference and reflective "
+                    "frames and bench --pi-extent, in the same turns")
+    ap.add_argument("--time-frames", action="store_true",
+                    help="time the frames in this process and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k3_chunks needs an NVIDIA GPU")
+    if args.time_frames:
+        time_frames(10)
+        return 0
     inputs = str(Path(args.inputs or f"_archive/{args.kernel}_inputs.pt")
                  .resolve())
     if args.time_only:
@@ -543,10 +817,13 @@ def main(argv=None):
             rec["tree"] = "parent" if tree != here else "this"
             records.append(rec)
             print(json.dumps(rec), flush=True)
+    if args.frames:
+        records += frames_in_turns(trees, here)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))
-    bad = [r for r in records if any(r["mismatches"].values())]
+    bad = [r for r in records if any(r.get("mismatches", {}).values())
+           or r.get("overflow")]
     return 1 if bad else 0
 
 

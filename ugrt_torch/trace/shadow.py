@@ -47,6 +47,18 @@ HWIN = 128    # heavy footprint-box windows
 # 92% shadowed, where longer items stop early more often).
 SCHUNK = 1
 HCHUNK = 4
+# The cell-key site without a light window (reference and extent grids)
+# takes K3's serial walk, whose work item should hold a block's whole
+# range (5.63 windows a block on the flagship reference frame): its rays
+# stop at the group that occluded their neighbour, and an item cut from
+# the range would test them again.  The windowed grid's sites and every
+# box site keep the block walk, which is faster there (CUDA kernel alone
+# on the flagship frames, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6):
+# windowed key site 0.194-0.199 ms against the serial walk's 0.96-1.05
+# at any chunk (1.2 windows a block, 1 row in 46 needed); windowed box
+# site 0.240-0.241 at chunk 4 against 0.318-0.319; reference box site
+# 0.095 against 0.91-0.93.
+SERIAL_CHUNK = 16
 
 # Windowed light-grid margin (fraction of the width per side) and width
 # floor, as ugrt.trace.shadow defines them.
@@ -240,6 +252,7 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
 
     tri_w = tw.pack_tri_windows_coeff(vertices, faces, light_grid, L,
                                       win=SWIN)
+    serial = window is None
     shadow_blocks = torch.zeros((nb, 128), dtype=torch.int32, device=dev)
     for slab in range(NS):
         rows[:, :, 4] = torch.where(scell_blk < sentinel,
@@ -249,7 +262,8 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
                          + light_grid.cell_count[k2 + slab], 0)
         w_lo, w_hi = tw.window_span(lo, hi, SWIN)
         shadow_blocks |= sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
-                               chunk=SCHUNK)
+                               chunk=SERIAL_CHUNK if serial else SCHUNK,
+                               serial=serial)
 
     if light_grid.heavy_faces.shape[0] > 0:
         co = theavy.heavy_coeffs(vertices, faces, light_grid.heavy_faces,
