@@ -45,11 +45,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
  6. The differentiable step render_and_grad on bench.py's flagship
     workload (bench.py:142-211: 1024^2, windowed, spot, one light, zero
     target): one warm-up step, then 4 steps with CUDA-event and host ms,
-    loss, |grad|_1 and overflow; K1-K3 must have launched; whether two
-    identical steps give bitwise equal gradients; one profiled step.
-    Then the rotated Cornell box at 64^2 (tests/test_grad.py:154-182) on
-    the card and on the CPU: loss within rtol 1e-5, atol 1e-7, gradients
-    within 1e-5 * max|g| (sums in another order).
+    loss, |grad|_1 and overflow; K1-K3 and G1 (the gathers' segment sum,
+    two a step) must have launched; whether two identical steps give
+    bitwise equal gradients; one profiled step, which must list G1's
+    kernel and no index_add_ kernel.  Then the rotated Cornell box at
+    64^2 (tests/test_grad.py:154-182) on the card and on the CPU: loss
+    within rtol 1e-5, atol 1e-7, gradients within 1e-5 * max|g| (sums in
+    another order).  (g) G1 alone: its inputs at both flagship shapes
+    (the corner gather, [3,145,728, 3] into the vertices, and the
+    material gather, [1,048,576, 6] into the materials) recorded from
+    one eager step, then G1 bitwise its plain version on them and on
+    micro.gather_bwd's skewed cases (one row, runs across warp and block
+    edges, tables just below and above the shared-memory cutoff, 40
+    binades, inf and NaN, N = 0, 1, 6 and 9 columns), twice each; its
+    CUDA-event ms, the ms of its fill and kernels replayed as one CUDA
+    graph (device time without the host's gaps), the plain version's
+    ms, index_add_ of the fixed-point values alone (the library
+    yardstick) and the bound (bytes at 3.35 TB/s); what the inputs ask
+    (rows touched, distinct rows a warp, non-zero group sums).
  7. The probes S1-S3 (ugrt_torch.micro) at their scripts' sizes: every
     variant held against its plain version (S1 fma, S2, S3 bitwise; S1
     mma within its bound), then timed with their bounds, S2's and S3's
@@ -93,7 +106,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
     (g) Peak and held device memory of the eager body and of each key
     from nothing recorded, as phase 11h.
  9. The training loop train() on bench.py's flagship workload (both
-    parameter groups): 6 steps with a checkpoint every 3, then a resume
+    parameter groups; K1-K3 and G1 counted): 6 steps with a checkpoint
+    every 3, then a resume
     to 8 steps, with CUDA-event and host ms per step and the losses
     (non-finite fails; the resume must start at step 6 and leave its
     latest checkpoint at step 7); then tests/test_api.py:87-130 on the
@@ -105,8 +119,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
     at the flagship in windowed and reference mode on CAMERA, then
     CAMERA_2 (the first call records the key, the second replays it),
     and sharded_train_step on phase 6's workload on a zero, then a
-    seeded target; K1-K3's launches on it.  Each replay bitwise its
-    eager body (.fn): image and overflow; loss, both gradients and
+    seeded target; K1-K3's and G1's launches on it.  Each replay bitwise
+    its eager body (.fn): image and overflow; loss, both gradients and
     overflow.  Each image bitwise render_color's; each step against
     render_and_grad (loss rtol 1e-5, gradients within 1e-6 * max|g|, or
     bitwise); overflow False.  Eager body, replay, bare replay
@@ -139,10 +153,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
     steps 1-4, and of train() per step (steps 1-4); K1-K3's launches
     credited to the graphed runs.  (g) One replayed frame and one step
     under torch.profiler: busy share, kernel count, top kernels; K1-K3
-    must appear by name.  (h) Peak device memory of eager and graphed
-    frames and steps, and what a capture holds.  (i) A Program whose
+    must appear by name, and in the step G1 and no index_add_.  (h) Peak
+    device memory of eager and graphed frames and steps, and what a
+    capture holds.  (i) A Program whose
     body calls .item() must raise at capture, and a replay after it
-    still equal eager.
+    still equal eager; the programs recorded before it stay (later
+    phases replay them, phase 13 under torch.profiler).
 12. The bench entries, as a user runs them, each in a subprocess from
     the checkout's root: ``python -m ugrt_torch.bench --breakdown``
     (parity gate, chained and fenced step, the five stages) and
@@ -153,23 +169,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
     frame against the base frame), which fails on overflow.  The bench's
     launches: ``bench.main(["--iters", "5", "--skip-parity",
     "--breakdown"])`` and ``bench_reflective.run`` at the flagship in
-    this process, the counts of K1-K3 and D1 set to 0 just before and
-    read just after (every kernel must have launched).
+    this process, the counts of K1-K3, D1 and G1 set to 0 just before
+    and read just after (every kernel must have launched).
 13. The profiling modules of ugrt_torch.micro, as a user runs them, each
     in a subprocess with its output in a temporary directory:
     ``profile_chain`` (every line item in order with positive host and
     CUDA-event ms, and every statistic); ``capture_trace``, windowed
     and ``--pi-extent``, each followed by ``parse_trace`` on its trace
-    (total device time positive; K1's, K2's and K3's kernels in the
-    table, their kernel events counted); bench's windowed step profiled
-    in this process beside it; ``render_samples`` (both PNGs must
-    decode at 1024^2 and 512^2).  Prints each module's headline lines
-    and parse_trace's top 25 groups.  The device time and busy share of
+    (total device time positive; K1's, K2's, K3's and G1's kernels in
+    the table, their kernel events counted); ``render_samples`` (both
+    PNGs must decode at 1024^2 and 512^2).  Prints each module's
+    headline lines and parse_trace's top 25 groups.  The device time and busy share of
     every profile in this script come from micro.parse_trace.
 Then one JSON line with the kernels (D1 at the flagship reflective
-frame's rays, its launches those of phase 8's 4 frames; each kernel's
-"bench_launches" those of phase 12's in-process runs, "profile_launches"
-K1-K3's kernel events in phase 13's windowed and pi-extent traces), and last
+frame's rays, its launches those of phase 8's 4 frames; G1 the sum of
+its two sites of phase 6g, its launches those of phase 6's 5 steps; each
+kernel's "bench_launches" those of phase 12's in-process runs,
+"profile_launches" K1-K3's and G1's kernel events in phase 13's
+windowed and pi-extent traces), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With --dist, under ``python -m torch.distributed.run --standalone
@@ -242,8 +259,9 @@ GENERIC_LIGHT = dict(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
                      up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): f32 outside the tensor cores, TF32 dense, HBM3.
+# sheet): f32 and f64 outside the tensor cores, TF32 dense, HBM3.
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 PEAK_TF32 = 495e12
 HBM_BYTES_S = 3.35e12
 # f32 operations per (ray, row) test, counted in each kernel body
@@ -254,6 +272,7 @@ FLOPS_K3 = 30       # det 5, 1/det, u 6, v 6, t, u+v, t*d 3, |t*d| 6, +eps
 FLOPS_S2 = 41       # 1 product, then 8 x (mul, add, mul, sub, abs)
 FLOPS_D1 = 46       # tvec 3, pvec 9, det 5, 1/det, u 6, qvec 9, v 6, t 6,
                     # u+v (the DDA's own steps not counted)
+FLOPS_G1 = 3        # f64 per value: |v| and its sum, the scaling product
 NO_LIBRARY = {
     "primary_sweep": "no single PyTorch call computes a per-ray lex-min "
                      "(t, face) over cell-keyed triangle windows",
@@ -268,6 +287,9 @@ NO_LIBRARY = {
     "uniform_dda": "no single PyTorch call walks rays through a uniform "
                    "grid and takes each ray's first hit in its cells",
 }
+# G1's kernels by name, and index_add_'s, which the step must not launch.
+G1_KERNEL = r"segment_accumulate_kernel"
+INDEX_ADD_KERNEL = r"indexFunc"
 
 
 def say(msg):
@@ -305,6 +327,31 @@ def host_ms(fn, iters):
     elapsed = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     return elapsed
+
+
+def graph_ms(fn, iters):
+    """Mean CUDA-event ms of fn() captured as one CUDA graph and replayed
+    ``iters`` times back to back: its device work without the host's
+    launch gaps (torch.profiler is not needed for it)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(flops, nbytes, peak=PEAK_F32):
@@ -753,7 +800,14 @@ def step_phase(scene, flagship, camera, light, kernels):
         fail("phase 6: two identical steps differ")
     del outs
 
-    profile_once("step", step, top_n=10)
+    names = profile_once("step", step, top_n=10)
+    g1_seen = [n for n in names if re.search(G1_KERNEL, n)]
+    index_add = [n for n in names if re.search(INDEX_ADD_KERNEL, n)]
+    say(f"phase 6: G1 kernels in the profiled step {len(g1_seen)}, "
+        f"index_add_ kernels {len(index_add)}")
+    if not g1_seen or index_add:
+        fail("phase 6: the step's gather backward did not run G1, or ran "
+             "index_add_")
 
     # The rotated Cornell box at 64^2, card against CPU.
     small = dataclasses.replace(flagship, screen_width=64, screen_height=64,
@@ -777,6 +831,90 @@ def step_phase(scene, flagship, camera, light, kernels):
             or max(errs.values()) > GRAD_REL):
         fail("phase 6: the step on the card disagrees with the CPU")
     return launches, sum(times) / len(times)
+
+
+def gather_phase(scene, flagship, camera, light, seed):
+    """Phase 6g: G1, the segment sum of gather_rows's backward.  Its
+    inputs at both flagship shapes (the corner and the material gather)
+    from one eager windowed step; the kernel bitwise its plain version on
+    them and on micro.gather_bwd's skewed cases, twice each; CUDA-event
+    ms of the kernel's wrapper, of the plain version and of index_add_
+    of the fixed-point values alone (the library yardstick), of the
+    wrapper's fill and kernels replayed as one CUDA graph, and the bound.
+    Returns {site: result}."""
+    import math
+
+    import torch
+
+    from ugrt_torch.kernels import segment_sum as g1
+    from ugrt_torch.micro import gather_bwd
+
+    cfg = dataclasses.replace(flagship, light_grid_mode="windowed")
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    args = step_inputs(scene, cfg, camera, light, "cuda")
+    sites = {name: (s["values"], s["idx"], s["rows"])
+             for name, s in gather_bwd.record_inputs(args, kw).items()}
+    if sorted(sites) != ["corner", "material"]:
+        fail(f"phase 6g: the step's segment sums were {sorted(sites)}")
+
+    def mismatches(got, want):
+        return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+    results, bad = {}, []
+    for name, (values, idx, rows) in sorted(sites.items()):
+        want = g1.segment_sum_plain(values, idx, rows)
+        got = g1.segment_sum(values, idx, rows)
+        again = g1.segment_sum(values, idx, rows)
+        mism = mismatches(got, want) + mismatches(again, want)
+        fixed = g1.fixed_point(values)[0]
+        shape = (rows,) + tuple(values.shape[1:])
+
+        def index_add():
+            return torch.zeros(shape, dtype=torch.int64,
+                               device="cuda").index_add_(0, idx, fixed)
+
+        ms = cuda_ms(lambda: g1.segment_sum(values, idx, rows), 20)
+        kernel_ms = graph_ms(lambda: g1.segment_sum(values, idx, rows), 20)
+        plain_ms = cuda_ms(lambda: g1.segment_sum_plain(values, idx, rows),
+                           5)
+        library_ms = cuda_ms(index_add, 10)
+        b_ms, b_by = bound(FLOPS_G1 * values.numel(),
+                           nbytes(values, idx, want), peak=PEAK_F64)
+        prof = gather_bwd.profile(values, idx, rows)
+        table = g1.table(rows, math.prod(values.shape[1:]))
+        results[name] = dict(
+            shape=[list(values.shape), rows], table=table, mismatches=mism,
+            max_abs_err=float((got.double() - want.double()).abs().max()),
+            ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            profile=prof)
+        say(f"phase 6g: G1 {name} ({tuple(values.shape)} into {rows} rows, "
+            f"{table} table): {mism} bits differ over two launches; "
+            f"{ms:.4f} ms (CUDA events; {kernel_ms:.4f} replayed as a CUDA "
+            f"graph: its fill and kernels alone), plain {plain_ms:.4f}, "
+            f"index_add_ alone {library_ms:.4f}; bound {b_ms:.4f} ms "
+            f"({b_by}); rows "
+            f"touched {prof['rows_touched']}, distinct rows a warp "
+            f"{prof['distinct_rows_per_group']:.3f}, non-zero group sums "
+            f"{prof['group_atomics_nonzero']} of {prof['contributions']} "
+            f"contributions ({prof['zero_contributions']} zero)")
+        if mism:
+            bad.append(name)
+    for name, (values, idx, rows) in gather_bwd.skewed_cases(
+            "cuda", seed).items():
+        want = g1.segment_sum_plain(values, idx, rows)
+        mism = sum(mismatches(g1.segment_sum(values, idx, rows), want)
+                   for _ in range(2))
+        say(f"phase 6g: G1 {name} ({tuple(values.shape)} into {rows} rows): "
+            f"{mism} bits differ over two launches")
+        if mism:
+            bad.append(name)
+    if bad:
+        fail(f"phase 6g: G1 disagrees with its plain version on {bad}")
+    del sites
+    torch.cuda.empty_cache()
+    return results
 
 
 # Phase 7: each probe kernel, the TPU kernel it replaces, and the variant
@@ -1848,7 +1986,6 @@ def profiling_phase():
 
     import torch
 
-    from ugrt_torch import bench
     from ugrt_torch.micro import profile_chain, render_samples
 
     torch.cuda.empty_cache()
@@ -1867,7 +2004,8 @@ def profiling_phase():
         fail("phase 13: profile_chain missed a line item or a statistic, "
              "or an item's ms is not positive")
 
-    launches = {k: [] for k in SWEEP_KERNELS}
+    pats = dict(SWEEP_KERNELS, segment_sum=G1_KERNEL)
+    launches = {k: [] for k in pats}
     with tempfile.TemporaryDirectory() as tmp:
         for argv in ((), ("--pi-extent",)):
             d = os.path.join(tmp, "pi_extent" if argv else "windowed")
@@ -1885,22 +2023,20 @@ def profiling_phase():
             for ms, n, group in table[:25]:
                 say(f"  {ms:9.2f} ms x{n:<5d} {group}")
             found = {k: sum(n for _, n, g in table if re.search(pat, g))
-                     for k, pat in SWEEP_KERNELS.items()}
-            say(f"phase 13: K1-K3 kernel events in the trace {found}")
+                     for k, pat in pats.items()}
+            say(f"phase 13: K1-K3's and G1's kernel events in the trace "
+                f"{found}")
             for k, n in found.items():
                 launches[k].append(n)
             if not (total and total > 0) or min(found.values()) <= 0:
                 fail(f"phase 13: capture_trace {' '.join(argv)}: no device "
-                     "time, or K1, K2 or K3 missing from parse_trace's table")
+                     "time, or K1, K2, K3 or G1 missing from parse_trace's "
+                     "table")
 
-        # The same step in this process: chip_smoke's own profile of it.
-        w = bench.workload("cuda")
-        x = bench.step_inputs(w, torch.device("cuda"))
-        step, _ = bench.make_step(w, x)
-        step(x["vertices"], x["materials"])
-        profile_once("phase 13: bench's windowed step in this process",
-                     lambda: step(x["vertices"], x["materials"]), top_n=5)
-
+        # No profile of the step in this process here: at this point of
+        # the run a profiled replay of the step's graph crashed the
+        # process inside CUPTI (PERF.md §7); capture_trace's subprocess
+        # above profiles the same step.
         out, secs = run_module("ugrt_torch.micro.render_samples", "--out",
                                tmp, phase="phase 13")
         shapes = {}
@@ -2197,8 +2333,14 @@ def program_phase(scene, flagship, camera, light, kernels):
             ("phase 11g: replayed step",
              lambda: render_and_grad(**step_args, **step_kw))):
         names = profile_once(label, fn, top_n=10)
-        missing = [k for k, pat in SWEEP_KERNELS.items()
+        pats = dict(SWEEP_KERNELS)
+        if "step" in label:
+            pats["segment_sum"] = G1_KERNEL
+        missing = [k for k, pat in pats.items()
                    if not any(re.search(pat, n) for n in names)]
+        if "step" in label and any(re.search(INDEX_ADD_KERNEL, n)
+                                   for n in names):
+            missing.append("no index_add_")
         say(f"{label}: {len(names)} distinct kernels; K1-K3 by name: "
             f"{'all present' if not missing else f'missing {missing}'}")
         if missing:
@@ -2616,6 +2758,7 @@ def main(argv=None):
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
+    from ugrt_torch.kernels.segment_sum import segment_sum
     from ugrt_torch.kernels.uniform_dda import uniform_dda
     from ugrt_torch.scene import procedural
 
@@ -2718,13 +2861,16 @@ def main(argv=None):
         fail("phase 5: a kernel of the path was never launched")
     profile_frames(scene, flagship, camera, light, lp)
 
-    # Phase 6: the differentiable step; phase 7: the probes (the K
-    # kernels' counts are reset before each path and read after it).
+    # Phase 6: the differentiable step (and G1 alone, 6g); phase 7: the
+    # probes (the kernels' counts are reset before each path and read
+    # after it).  The step's paths also launch G1.
     k_wrappers = {"primary_sweep": k1.primary_sweep,
                   "heavy_primary_sweep": k2.heavy_primary_sweep,
                   "shadow_sweep": k3.shadow_sweep}
+    step_kernels = dict(k_wrappers, segment_sum=segment_sum)
     step_launches, step_ms = step_phase(scene, flagship, camera, light,
-                                        k_wrappers)
+                                        step_kernels)
+    g1 = gather_phase(scene, flagship, camera, light, args.seed)
     probes = probe_phase()
 
     # Phase 8: the reflective frame (its program, and D1); phase 9: the
@@ -2735,12 +2881,13 @@ def main(argv=None):
         dict(k_wrappers, uniform_dda=uniform_dda))
     say(f"phase 8 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
-    train_launches = train_phase(scene, flagship, camera, light, k_wrappers)
+    train_launches = train_phase(scene, flagship, camera, light,
+                                 step_kernels)
 
     # Phase 10: sharding (an NCCL group of one, strips on one card), the
     # native host library, build_packets.
     t0 = time.perf_counter()
-    mesh_launches = mesh_phase(scene, flagship, camera, light, k_wrappers)
+    mesh_launches = mesh_phase(scene, flagship, camera, light, step_kernels)
     strip_phase(scene, flagship, camera, light, k_wrappers)
     native_phase(scene, flagship, camera, light)
     packet_phase(scene, flagship, camera, light)
@@ -2750,13 +2897,13 @@ def main(argv=None):
     # Phase 11: one dispatch per frame and per step.
     t0 = time.perf_counter()
     program_launches = program_phase(scene, flagship, camera, light,
-                                     k_wrappers)
+                                     step_kernels)
     say(f"phase 11 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
 
     # Phase 12: the bench entries.
     t0 = time.perf_counter()
-    bench_launches = bench_phase(dict(k_wrappers, uniform_dda=uniform_dda),
+    bench_launches = bench_phase(dict(step_kernels, uniform_dda=uniform_dda),
                                  step_ms)
     say(f"phase 12 took {time.perf_counter() - t0:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - started:.1f} s")
@@ -2822,6 +2969,26 @@ def main(argv=None):
                                      "cells_per_round")},
         "library_ms": None, "library_none": NO_LIBRARY["uniform_dda"],
         "sites": dda})
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "ugrt_torch/csrc/segment_sum.cu",
+        "replaces": "ugrt/diff/fastgrad.py:129 (_face_corners_bwd) and "
+                    ":172 (_rows_bwd): custom VJPs, not Pallas kernels",
+        "launches": step_launches["segment_sum"],
+        "step_launches": step_launches["segment_sum"],
+        "train_launches": train_launches["segment_sum"],
+        "mesh_launches": mesh_launches["segment_sum"],
+        "program_launches": program_launches["segment_sum"],
+        "bench_launches": bench_launches["segment_sum"],
+        "profile_launches": profile_launches["segment_sum"],
+        "max_abs_err": max(r["max_abs_err"] for r in g1.values()),
+        **{k: sum(r[k] for r in g1.values())
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                     "library_ms")},
+        "bound_by": max(g1.values(), key=lambda r: r["bound_ms"])["bound_by"],
+        "library": "index_add_ of the int64 fixed-point values (and its "
+                   "zero fill)",
+        "sites": g1})
     kernels += probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

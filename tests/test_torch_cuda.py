@@ -27,6 +27,7 @@ included (face_id and t bitwise, at most 16 shadow pixels apart).
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -907,3 +908,135 @@ def test_bench_entry_on_card(card):
     assert d["parity_shadow_px"] <= 16 and d["trace_backend"] == "cuda"
     assert d["step_ms_chained_events"] > 0 and d["light_grid_mode"] == (
         "windowed")
+
+
+SEGMENT_CASES = ("material", "corner", "one row, shared", "one row, large",
+                 "runs 31-257", "cutoff below", "cutoff above", "40 binades",
+                 "inf", "nan", "empty", "1 column", "6 columns", "9 columns",
+                 "96 columns")
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_sum_matches_plain_on_card(card, case):
+    """G1 bitwise segment_sum_plain (NaN bits included) at the flagship
+    step's two shapes and on micro.gather_bwd's skewed cases, through the
+    wrapper (twice: the same bits).  The cases reach each of the kernel's
+    tables by their shapes (test_torch_gather's
+    test_skewed_cases_cover_every_table)."""
+    from ugrt_torch.kernels import segment_sum as g1
+    from ugrt_torch.micro import gather_bwd
+
+    cases = (gather_bwd.flagship_cases(card)
+             if case in ("material", "corner")
+             else gather_bwd.skewed_cases(card))
+    values, idx, rows = cases[case]
+    want = g1.segment_sum_plain(values, idx, rows)
+    before = g1.segment_sum.launches
+    outs = [g1.segment_sum(values, idx, rows),
+            g1.segment_sum(values, idx, rows)]
+    assert g1.segment_sum.launches == before + 2
+    for out in outs:
+        assert out.device.type == "cuda" and out.shape == want.shape
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (
+            case, int((out.view(torch.int32) != want.view(torch.int32)).sum()))
+
+
+def _near_power_of_two(rng, m):
+    """[m + 1] f32 across 40 binades whose last m have sum |v| 2^-33
+    below 2^19 (a few f64 ulps): sums of them in different orders round
+    differently and land on either side."""
+    v = (rng.uniform(0.5, 1.5, m + 1)
+         * 2.0 ** rng.integers(-40, 1, m + 1)).astype(np.float32)
+    v[-3:] = 0
+    for k, undershoot in ((3, 1.0), (2, 2.0 ** -12), (1, 2.0 ** -33)):
+        rest = math.fsum(np.abs(v[1:]).astype(np.float64))
+        v[-k] = np.float32(2.0 ** 19 - rest - undershoot)
+    return v
+
+
+def test_segment_sum_ignores_alignment_on_card(card):
+    """G1's scale pass sums |v| in one order whether or not the values
+    are 16-byte aligned: a view that starts one element in gives the bits
+    of its aligned copy, with sum |v| a few ulps below a power of two
+    (where another order of that sum may pick another binade), and the
+    bits of the plain version away from one."""
+    from ugrt_torch.kernels import segment_sum as g1
+
+    n = 100_003
+    rng = np.random.default_rng(5)
+    for trial in range(4):
+        flat = torch.from_numpy(_near_power_of_two(rng, 3 * n)).to(card)
+        idx = torch.from_numpy(rng.integers(0, 700, n)).to(card)
+        unaligned = flat[1:].view(n, 3)
+        assert unaligned.data_ptr() % 16
+        aligned = unaligned.clone()
+        assert torch.equal(
+            g1.segment_sum(unaligned, idx, 700).view(torch.int32),
+            g1.segment_sum(aligned, idx, 700).view(torch.int32)), trial
+    values = torch.from_numpy(rng.normal(size=3 * n + 1).astype(
+        np.float32)).to(card)[1:].view(n, 3)
+    assert torch.equal(g1.segment_sum(values, idx, 700).view(torch.int32),
+                       g1.segment_sum_plain(values, idx, 700).view(
+                           torch.int32))
+
+
+def test_step_backward_launches_g1_on_the_calling_thread(card,
+                                                       monkeypatch):
+    """render_and_grad's backward runs on the thread that calls it, not
+    on autograd's worker thread, so a capture's G1 launches come from the
+    capturing thread (core/program.py)."""
+    import threading
+
+    from ugrt_torch import bridge
+    from ugrt_torch.core import gather
+    from ugrt_torch.diff.render_grad import render_and_grad
+
+    threads, original = [], gather.segment_sum
+
+    def record(values, idx, rows):
+        threads.append(threading.get_ident())
+        return original(values, idx, rows)
+
+    monkeypatch.setattr(gather, "segment_sum", record)
+    scene = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(RenderConfig(), screen_width=64,
+                              screen_height=64, grid_x=8, grid_y=8)
+    t = bridge.scene_to_torch(scene, card)
+    cc = bridge.camcoords_to_torch(CAMERA, cfg.fovy_deg, 1.0, card)
+    render_and_grad.fn(
+        t["vertices"], t["materials"], t["faces"], t["mat_index"], cc,
+        cc[None], bridge.from_numpy(np.asarray(CAMERA.eye), card, np.float32),
+        torch.zeros((64, 64, 3), device=card), cfg=cfg,
+        capacity=cfg.pair_capacity(scene.num_faces), num_lights=1,
+        use_spot=True)
+    assert threads == [threading.get_ident()] * 2
+
+
+def test_gather_rows_backward_launches_g1_on_card(card):
+    """On CUDA tensors gather_rows's backward launches G1's kernels and no
+    index_add_ kernel (indexFunc*), and equals the CPU's backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ugrt_torch.core.gather import gather_rows
+    from ugrt_torch.kernels import segment_sum as g1
+
+    rng = np.random.default_rng(3)
+    table = torch.tensor(rng.normal(size=(300, 3)), dtype=torch.float32)
+    idx = torch.from_numpy(rng.integers(0, 300, size=(64, 48, 3)))
+    cot = torch.from_numpy(rng.normal(size=(64, 48, 3, 3)).astype(np.float32))
+    grads = []
+    for device in ("cpu", card):
+        t = table.to(device).requires_grad_(True)
+        out = gather_rows(t, idx.to(device))
+        before = g1.segment_sum.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (g,) = torch.autograd.grad(out, t, cot.to(device))
+            torch.cuda.synchronize()
+        grads.append(g.cpu())
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"}
+        if device == card:
+            assert g1.segment_sum.launches == before + 1
+            assert any("segment_accumulate_kernel" in n for n in names), names
+            assert not any("indexFunc" in n for n in names), names
+    assert torch.equal(grads[0], grads[1])

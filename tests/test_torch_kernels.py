@@ -462,11 +462,11 @@ def test_shadow_sweep_stats_needs_the_card():
 
 
 def test_build_keeps_the_probes_apart():
-    """The sweeps K1-K3 with the DDA D1, and the probes S1-S3, build as
-    two libraries: each library's entry points are defined in its own
-    sources, the error string in the source both link, and each
-    library's key covers its sources and the local headers they include,
-    and nothing else."""
+    """The sweeps K1-K3 with the DDA D1 and the segment sum G1, and the
+    probes S1-S3, build as two libraries: each library's entry points are
+    defined in its own sources, the error string in the source both
+    link, and each library's key covers its sources and the local headers
+    they include, and nothing else."""
     import re
 
     from ugrt_torch.kernels import _build
@@ -482,7 +482,7 @@ def test_build_keeps_the_probes_apart():
             for lib in _build.LIBRARIES}
     assert srcs["kernels"] == {"primary_sweep.cu", "heavy_primary_sweep.cu",
                                "shadow_sweep.cu", "uniform_dda.cu",
-                               "cuda_error.cu"}
+                               "segment_sum.cu", "cuda_error.cu"}
     assert srcs["kernels"] & srcs["probes"] == {"cuda_error.cu"}
     every = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
     assert srcs["kernels"] | srcs["probes"] == every

@@ -32,6 +32,16 @@ capturing thread.  A body with collectives takes "thread_local"
 (``dist.mesh``): NCCL's watchdog thread queries its events during the
 capture.  A host read in the body itself raises in either mode.
 
+A backward in a body runs on the capturing thread
+(``torch.autograd.set_multithreading_enabled(False)``, as
+``render_and_grad`` and ``dist.mesh`` do), not on autograd's worker
+thread.  Late in a full run of ``chip_smoke.py``, a replay of the
+step's graph under torch.profiler crashed the process (SIGSEGV inside
+CUPTI's callback of ``cuGraphLaunch``, in libcuda): in 8 of 9 runs with
+the step's G1 launches made from the worker thread into the capture,
+and still in about half of them with the backward on the capturing
+thread.  What CUPTI reads there is not known (PERF.md §7).
+
 Kernel launch counts.  A replay runs the kernels that the capture
 recorded without running their Python wrappers, so ``counters`` (objects
 with an int ``launches``, the kernel wrappers) are credited with each

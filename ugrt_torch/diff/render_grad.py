@@ -11,7 +11,8 @@ binary and carries no gradient; darkening uses the f32 /3
 (``add_shadows_f32``) so it still scales the gradients of shadowed
 pixels.  The backward is autograd's; the corner and material gathers'
 (``core.gather.gather_rows``) are its only sums over pixels, exact in
-fixed point, so the gradients' bits do not depend on summation order.
+fixed point (the kernel G1 on the card), so the gradients' bits do not
+depend on summation order.
 
 ``render_and_grad`` is one captured program per static key
 (``core.program``), as ugrt's is jitted: on the card the forward, the
@@ -31,6 +32,7 @@ from ugrt_torch.core.program import Program
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels.segment_sum import segment_sum
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
@@ -76,7 +78,7 @@ def render_color(vertices, materials, faces, mat_index, camcoords,
 
 @functools.partial(
     Program, static=("cfg", "capacity", "num_lights", "use_spot"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep))
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, segment_sum))
 def render_and_grad(vertices, materials, faces, mat_index, camcoords,
                     light_camcoords, light_position, target, *,
                     cfg: RenderConfig, capacity: int, num_lights: int,
@@ -93,7 +95,11 @@ def render_and_grad(vertices, materials, faces, mat_index, camcoords,
             light_position, cfg=cfg, capacity=capacity,
             num_lights=num_lights, use_spot=use_spot)
         loss = torch.mean((color - target) ** 2)
-        grad_v, grad_m = torch.autograd.grad(loss, (v, m))
+        # The backward on this thread, not on autograd's worker thread:
+        # so every launch of a capture comes from the capturing thread
+        # (core/program.py).
+        with torch.autograd.set_multithreading_enabled(False):
+            grad_v, grad_m = torch.autograd.grad(loss, (v, m))
     return dict(loss=loss.detach(), color=color.detach(),
                 grad_vertices=grad_v, grad_materials=grad_m,
                 overflow=overflow)

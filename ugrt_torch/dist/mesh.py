@@ -58,10 +58,11 @@ from ugrt_torch.diff.render_grad import render_color
 from ugrt_torch.dist import all_reduce
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels.segment_sum import segment_sum
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 
 # The kernels a replay launches, credited per replay (core.program).
-COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep)
+COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep, segment_sum)
 
 
 class Mesh(NamedTuple):
@@ -179,7 +180,9 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
             denom = torch.full((), 3.0 * cfg.image_size,
                                dtype=torch.float32, device=color.device)
             loss = torch.sum((color - target[:, cols]) ** 2) / denom
-            grad_v, grad_m = torch.autograd.grad(loss, (v, m))
+            # On this thread, as render_and_grad's (core/program.py).
+            with torch.autograd.set_multithreading_enabled(False):
+                grad_v, grad_m = torch.autograd.grad(loss, (v, m))
         return (all_reduce(loss.detach(), SUM, mesh.group),
                 all_reduce(grad_v, SUM, mesh.group),
                 all_reduce(grad_m, SUM, mesh.group),

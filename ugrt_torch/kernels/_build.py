@@ -2,9 +2,10 @@
 
 The sources make two libraries, each with a plain C interface loaded
 with ctypes: ``kernels``, the sweeps K1-K3 of the frame, step and
-training paths and the reflection DDA D1, and ``probes``, the probes
-S1-S3 that only ``ugrt_torch.micro`` launches, so a renderer's first
-frame waits for nvcc on the main paths' kernels alone.  Each ``.cu`` file of a library compiles
+training paths, the reflection DDA D1 and the step's segment sum G1,
+and ``probes``, the probes S1-S3 that only ``ugrt_torch.micro``
+launches, so a renderer's first frame waits for nvcc on the main paths'
+kernels alone.  Each ``.cu`` file of a library compiles
 with its own nvcc process, all started together, and the objects link
 into one shared library; ``cuda_error.cu`` (``ugrt_cuda_error_string``)
 goes into both.  Each entry point takes device pointers, sizes and the
@@ -50,12 +51,13 @@ NVCC_FLAGS = (
 # Library -> its .cu sources (each also links COMMON).
 LIBRARIES = {
     "kernels": ("primary_sweep.cu", "heavy_primary_sweep.cu",
-                "shadow_sweep.cu", "uniform_dda.cu"),
+                "shadow_sweep.cu", "uniform_dda.cu", "segment_sum.cu"),
     "probes": ("coeff_mt.cu", "tile_pipeline.cu", "heavy_variants.cu"),
 }
 COMMON = ("cuda_error.cu",)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # argtypes of every entry point, by library; the stream is always the
 # last argument.
 SIGNATURES = {
@@ -69,6 +71,7 @@ SIGNATURES = {
         "ugrt_uniform_dda": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
                              _P, _P, _P, _P),
+        "ugrt_segment_sum": (_P, _P, _L, _I, _I, _P, _P, _I, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

@@ -8,7 +8,9 @@ shade-time camera (the last light's, main.cu:170); ambient 0.5, diffuse
 misses shade black; shadowed pixels divide their u8 RGB by 3.
 ``gather.gather_rows`` fetches the materials, with a fixed-point backward
 that sums exactly in any order (ugrt's TPU row gather, shaders.py:58-80,
-sums by a one-hot matmul).
+sums by a one-hot matmul): on the card the kernel G1
+(kernels/segment_sum.py), which sums the few material rows in shared
+memory before one atomic per row and column a block.
 """
 
 from __future__ import annotations

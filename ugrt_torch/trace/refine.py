@@ -10,7 +10,8 @@ exact almost everywhere (away from visibility edges) at O(pixels) cost.
 ugrt gathers the corners through custom VJPs that sort the cotangents
 by face and take prefix-sum differences (diff/fastgrad.py:93-160); here
 ``gather.gather_rows`` fetches them and sums its backward in fixed point,
-exact in any order.  The |t| and |normal| quirks take
+exact in any order: on the card the kernel G1 (kernels/segment_sum.py),
+which groups a warp's equal vertices before its integer atomics.  The |t| and |normal| quirks take
 ``vecmath.absolute``, whose derivative at 0 is ugrt's.
 """
 
