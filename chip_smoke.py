@@ -45,24 +45,30 @@ Phases (each prints a line; any failure raises and exits non-zero):
  6. The differentiable step render_and_grad on bench.py's flagship
     workload (bench.py:142-211: 1024^2, windowed, spot, one light, zero
     target): one warm-up step, then 4 steps with CUDA-event and host ms,
-    loss, |grad|_1 and overflow; K1-K3 and G1 (the gathers' segment sum,
-    two a step) must have launched; whether two identical steps give
-    bitwise equal gradients; one profiled step, which must list G1's
-    kernel and no index_add_ kernel.  Then the rotated Cornell box at
-    64^2 (tests/test_grad.py:154-182) on the card and on the CPU: loss
-    within rtol 1e-5, atol 1e-7, gradients within 1e-5 * max|g| (sums in
-    another order).  (g) G1 alone: its inputs at both flagship shapes
-    (the corner gather, [3,145,728, 3] into the vertices, and the
-    material gather, [1,048,576, 6] into the materials) recorded from
-    one eager step, then G1 bitwise its plain version on them and on
-    micro.gather_bwd's skewed cases (one row, runs across warp and block
-    edges, tables just below and above the shared-memory cutoff, 40
-    binades, inf and NaN, N = 0, 1, 6 and 9 columns), twice each; its
-    CUDA-event ms, the ms of its fill and kernels replayed as one CUDA
-    graph (device time without the host's gaps), the plain version's
-    ms, index_add_ of the fixed-point values alone (the library
-    yardstick) and the bound (bytes at 3.35 TB/s); what the inputs ask
-    (rows touched, distinct rows a warp, non-zero group sums).
+    loss, |grad|_1 and overflow; K1-K3 and G1's two sums (the corner sum
+    keyed by face and the material sum, one each a step) must have
+    launched; whether two identical steps give bitwise equal gradients;
+    one profiled step, which must list both of G1's accumulate kernels
+    and no index_add_ kernel.  Then the rotated Cornell box at 64^2
+    (tests/test_grad.py:154-182) on the card and on the CPU: loss within
+    rtol 1e-5, atol 1e-7, gradients within 1e-5 * max|g| (sums in
+    another order).  (g) G1 alone: its inputs at both flagship sites
+    (the corner sum, [1,048,576, 9] cotangents keyed by face into the
+    vertices, and the material sum, [1,048,576, 6] into the materials)
+    recorded from one eager step, then each sum bitwise its plain
+    version on them and on micro.gather_bwd's skewed cases (one row,
+    runs across warp and block edges, tables just below and above the
+    shared-memory cutoff, 40 binades, inf and NaN, N = 0, 1, 6, 9 and 96
+    columns) and face cases (one face, shared vertices, degenerate
+    faces, misses to face 0, runs that change face mid-step and
+    mid-span, a random face a pixel, 40 binades, inf and NaN, N = 0),
+    twice each; its CUDA-event ms, the ms of its kernels replayed as one
+    CUDA graph (device time without the host's gaps), the plain
+    version's ms, index_add_ of the fixed-point values alone (the
+    library yardstick) and the bound (bytes at 3.35 TB/s); what the
+    inputs ask (micro.gather_bwd.profile: distinct keys a step, steps
+    of one key, carried runs, flushes, table and global additions, keys
+    and rows touched).
  7. The probes S1-S3 (ugrt_torch.micro) at their scripts' sizes: every
     variant held against its plain version (S1 fma, S2, S3 bitwise; S1
     mma within its bound), then timed with their bounds, S2's and S3's
@@ -182,8 +188,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
     headline lines and parse_trace's top 25 groups.  The device time and busy share of
     every profile in this script come from micro.parse_trace.
 Then one JSON line with the kernels (D1 at the flagship reflective
-frame's rays, its launches those of phase 8's 4 frames; G1 the sum of
-its two sites of phase 6g, its launches those of phase 6's 5 steps; each
+frame's rays, its launches those of phase 8's 4 frames; G1's two sums
+(face_corner_sum, segment_sum) each at its site of phase 6g, its
+launches those of phase 6's 5 steps; each
 kernel's "bench_launches" those of phase 12's in-process runs,
 "profile_launches" K1-K3's and G1's kernel events in phase 13's
 windowed and pi-extent traces), and last
@@ -287,8 +294,10 @@ NO_LIBRARY = {
     "uniform_dda": "no single PyTorch call walks rays through a uniform "
                    "grid and takes each ray's first hit in its cells",
 }
-# G1's kernels by name, and index_add_'s, which the step must not launch.
-G1_KERNEL = r"segment_accumulate_kernel"
+# G1's kernels by name (its face-keyed corner sum and its row sum), and
+# index_add_'s, which the step must not launch.
+G1_KERNELS = {"face_corner_sum": r"face_accumulate_kernel",
+              "segment_sum": r"row_accumulate_kernel"}
 INDEX_ADD_KERNEL = r"indexFunc"
 
 
@@ -801,13 +810,14 @@ def step_phase(scene, flagship, camera, light, kernels):
     del outs
 
     names = profile_once("step", step, top_n=10)
-    g1_seen = [n for n in names if re.search(G1_KERNEL, n)]
+    g1_seen = {k: [n for n in names if re.search(pat, n)]
+               for k, pat in G1_KERNELS.items()}
     index_add = [n for n in names if re.search(INDEX_ADD_KERNEL, n)]
-    say(f"phase 6: G1 kernels in the profiled step {len(g1_seen)}, "
-        f"index_add_ kernels {len(index_add)}")
-    if not g1_seen or index_add:
-        fail("phase 6: the step's gather backward did not run G1, or ran "
-             "index_add_")
+    say(f"phase 6: G1 kernels in the profiled step {g1_seen}, index_add_ "
+        f"kernels {len(index_add)}")
+    if not all(g1_seen.values()) or index_add:
+        fail("phase 6: the step's gather backward did not run both of G1's "
+             "sums, or ran index_add_")
 
     # The rotated Cornell box at 64^2, card against CPU.
     small = dataclasses.replace(flagship, screen_width=64, screen_height=64,
@@ -833,17 +843,31 @@ def step_phase(scene, flagship, camera, light, kernels):
     return launches, sum(times) / len(times)
 
 
-def gather_phase(scene, flagship, camera, light, seed):
-    """Phase 6g: G1, the segment sum of gather_rows's backward.  Its
-    inputs at both flagship shapes (the corner and the material gather)
-    from one eager windowed step; the kernel bitwise its plain version on
-    them and on micro.gather_bwd's skewed cases, twice each; CUDA-event
-    ms of the kernel's wrapper, of the plain version and of index_add_
-    of the fixed-point values alone (the library yardstick), of the
-    wrapper's fill and kernels replayed as one CUDA graph, and the bound.
-    Returns {site: result}."""
-    import math
+def read_once(case):
+    """The tensors that a G1 sum over ``case`` must read: all of a
+    material sum's inputs; of a face-keyed sum's faces table, only the
+    rows of the faces that occur (their vertex ids are read at a flush,
+    the rest never)."""
+    import torch
 
+    if len(case) != 4:
+        return case[:-1]
+    values, fid, faces, _ = case
+    used = torch.unique(fid)
+    used = used[(used >= 0) & (used < faces.shape[0])]
+    return values, fid, faces[used]
+
+
+def gather_phase(scene, flagship, camera, light, seed):
+    """Phase 6g: G1, the step's two fixed-point sums: the corner sum
+    keyed by face (face_corner_sum, the backward of gather_face_data)
+    and the material sum (segment_sum, gather_rows's).  Their inputs
+    from one eager windowed step; each kernel bitwise its plain version
+    on them and on micro.gather_bwd's skewed and face cases, twice each;
+    CUDA-event ms of the kernel's wrapper, of the plain version and of
+    index_add_ of the fixed-point values alone (the library yardstick),
+    of the wrapper's kernels replayed as one CUDA graph, and the bound.
+    Returns {site: result}."""
     import torch
 
     from ugrt_torch.kernels import segment_sum as g1
@@ -853,66 +877,69 @@ def gather_phase(scene, flagship, camera, light, seed):
     kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
               num_lights=1, use_spot=True)
     args = step_inputs(scene, cfg, camera, light, "cuda")
-    sites = {name: (s["values"], s["idx"], s["rows"])
-             for name, s in gather_bwd.record_inputs(args, kw).items()}
-    if sorted(sites) != ["corner", "material"]:
-        fail(f"phase 6g: the step's segment sums were {sorted(sites)}")
+    sites = gather_bwd.record_inputs(args, kw)
+    if sorted(sites) != ["corner", "material"] or len(sites["corner"]) != 4:
+        fail(f"phase 6g: the step's sums were {sorted(sites)}, the corner "
+             "sum not keyed by face")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def mismatches(got, want):
         return int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
     results, bad = {}, []
-    for name, (values, idx, rows) in sorted(sites.items()):
-        want = g1.segment_sum_plain(values, idx, rows)
-        got = g1.segment_sum(values, idx, rows)
-        again = g1.segment_sum(values, idx, rows)
+    for name, case in sorted(sites.items()):
+        fn, plain = gather_bwd.sums(case)
+        want = plain(*case)
+        got = fn(*case)
+        again = fn(*case)
         mism = mismatches(got, want) + mismatches(again, want)
-        fixed = g1.fixed_point(values)[0]
-        shape = (rows,) + tuple(values.shape[1:])
-
-        def index_add():
-            return torch.zeros(shape, dtype=torch.int64,
-                               device="cuda").index_add_(0, idx, fixed)
-
-        ms = cuda_ms(lambda: g1.segment_sum(values, idx, rows), 20)
-        kernel_ms = graph_ms(lambda: g1.segment_sum(values, idx, rows), 20)
-        plain_ms = cuda_ms(lambda: g1.segment_sum_plain(values, idx, rows),
-                           5)
-        library_ms = cuda_ms(index_add, 10)
-        b_ms, b_by = bound(FLOPS_G1 * values.numel(),
-                           nbytes(values, idx, want), peak=PEAK_F64)
-        prof = gather_bwd.profile(values, idx, rows)
-        table = g1.table(rows, math.prod(values.shape[1:]))
+        ms = cuda_ms(lambda: fn(*case), 20)
+        kernel_ms = graph_ms(lambda: fn(*case), 20)
+        plain_ms = cuda_ms(lambda: plain(*case), 5)
+        library_ms = cuda_ms(gather_bwd.index_add_call(case, g1.fixed_point),
+                             10)
+        b_ms, b_by = bound(FLOPS_G1 * case[0].numel(),
+                           nbytes(*read_once(case), want), peak=PEAK_F64)
+        prof = gather_bwd.profile(case, sms)
+        table = g1.table(prof["keys"], prof["columns"])
         results[name] = dict(
-            shape=[list(values.shape), rows], table=table, mismatches=mism,
+            shape=[list(case[0].shape), case[-1]], table=table,
+            mismatches=mism,
             max_abs_err=float((got.double() - want.double()).abs().max()),
             ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
             profile=prof)
-        say(f"phase 6g: G1 {name} ({tuple(values.shape)} into {rows} rows, "
-            f"{table} table): {mism} bits differ over two launches; "
-            f"{ms:.4f} ms (CUDA events; {kernel_ms:.4f} replayed as a CUDA "
-            f"graph: its fill and kernels alone), plain {plain_ms:.4f}, "
-            f"index_add_ alone {library_ms:.4f}; bound {b_ms:.4f} ms "
-            f"({b_by}); rows "
-            f"touched {prof['rows_touched']}, distinct rows a warp "
-            f"{prof['distinct_rows_per_group']:.3f}, non-zero group sums "
-            f"{prof['group_atomics_nonzero']} of {prof['contributions']} "
-            f"contributions ({prof['zero_contributions']} zero)")
+        say(f"phase 6g: G1 {name} ({tuple(case[0].shape)}, {prof['keys']} "
+            f"keys into {case[-1]} rows, {table} table): {mism} bits differ "
+            f"over two launches; {ms:.4f} ms (CUDA events; {kernel_ms:.4f} "
+            f"replayed as a CUDA graph: its kernels alone), plain "
+            f"{plain_ms:.4f}, index_add_ alone {library_ms:.4f}; bound "
+            f"{b_ms:.4f} ms ({b_by}); {prof['distinct_keys_per_step']:.3f} "
+            f"distinct keys a 32-element step (at most "
+            f"{prof['distinct_keys_per_step_max']}), {prof['one_key_steps']} "
+            f"steps of one key and {prof['mixed_steps']} of several of "
+            f"{prof['steps']}, {prof['carried_runs']} carried runs, "
+            f"{prof['flushes']} flushes, {prof['table_additions']} table "
+            f"and {prof['global_additions']} global additions; "
+            f"{prof['keys_touched']} keys and {prof['rows_touched']} rows "
+            f"touched; {prof['zero_contributions']} of "
+            f"{prof['contributions']} contributions zero")
         if mism:
             bad.append(name)
-    for name, (values, idx, rows) in gather_bwd.skewed_cases(
-            "cuda", seed).items():
-        want = g1.segment_sum_plain(values, idx, rows)
-        mism = sum(mismatches(g1.segment_sum(values, idx, rows), want)
-                   for _ in range(2))
-        say(f"phase 6g: G1 {name} ({tuple(values.shape)} into {rows} rows): "
-            f"{mism} bits differ over two launches")
+    cases = dict(gather_bwd.skewed_cases("cuda", seed))
+    cases.update({f"face: {k}": c for k, c in
+                  gather_bwd.face_cases("cuda", seed).items()})
+    for name, case in cases.items():
+        fn, plain = gather_bwd.sums(case)
+        want = plain(*case)
+        mism = sum(mismatches(fn(*case), want) for _ in range(2))
+        say(f"phase 6g: G1 {name} ({tuple(case[0].shape)} into {case[-1]} "
+            f"rows): {mism} bits differ over two launches")
         if mism:
             bad.append(name)
     if bad:
         fail(f"phase 6g: G1 disagrees with its plain version on {bad}")
-    del sites
+    del sites, cases
     torch.cuda.empty_cache()
     return results
 
@@ -2004,7 +2031,7 @@ def profiling_phase():
         fail("phase 13: profile_chain missed a line item or a statistic, "
              "or an item's ms is not positive")
 
-    pats = dict(SWEEP_KERNELS, segment_sum=G1_KERNEL)
+    pats = dict(SWEEP_KERNELS, **G1_KERNELS)
     launches = {k: [] for k in pats}
     with tempfile.TemporaryDirectory() as tmp:
         for argv in ((), ("--pi-extent",)):
@@ -2035,8 +2062,9 @@ def profiling_phase():
 
         # No profile of the step in this process here: at this point of
         # the run a profiled replay of the step's graph crashed the
-        # process inside CUPTI (PERF.md §7); capture_trace's subprocess
-        # above profiles the same step.
+        # process inside CUPTI with the first version of G1's kernels
+        # (PERF.md §7; micro.profile_crash drives that sequence);
+        # capture_trace's subprocess above profiles the same step.
         out, secs = run_module("ugrt_torch.micro.render_samples", "--out",
                                tmp, phase="phase 13")
         shapes = {}
@@ -2335,7 +2363,7 @@ def program_phase(scene, flagship, camera, light, kernels):
         names = profile_once(label, fn, top_n=10)
         pats = dict(SWEEP_KERNELS)
         if "step" in label:
-            pats["segment_sum"] = G1_KERNEL
+            pats.update(G1_KERNELS)
         missing = [k for k, pat in pats.items()
                    if not any(re.search(pat, n) for n in names)]
         if "step" in label and any(re.search(INDEX_ADD_KERNEL, n)
@@ -2758,7 +2786,7 @@ def main(argv=None):
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
     from ugrt_torch.kernels import shadow_sweep as k3
-    from ugrt_torch.kernels.segment_sum import segment_sum
+    from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
     from ugrt_torch.kernels.uniform_dda import uniform_dda
     from ugrt_torch.scene import procedural
 
@@ -2867,7 +2895,8 @@ def main(argv=None):
     k_wrappers = {"primary_sweep": k1.primary_sweep,
                   "heavy_primary_sweep": k2.heavy_primary_sweep,
                   "shadow_sweep": k3.shadow_sweep}
-    step_kernels = dict(k_wrappers, segment_sum=segment_sum)
+    step_kernels = dict(k_wrappers, face_corner_sum=face_corner_sum,
+                        segment_sum=segment_sum)
     step_launches, step_ms = step_phase(scene, flagship, camera, light,
                                         step_kernels)
     g1 = gather_phase(scene, flagship, camera, light, args.seed)
@@ -2969,26 +2998,31 @@ def main(argv=None):
                                      "cells_per_round")},
         "library_ms": None, "library_none": NO_LIBRARY["uniform_dda"],
         "sites": dda})
-    kernels.append({
-        "name": "segment_sum", "route": "cuda",
-        "source": "ugrt_torch/csrc/segment_sum.cu",
-        "replaces": "ugrt/diff/fastgrad.py:129 (_face_corners_bwd) and "
-                    ":172 (_rows_bwd): custom VJPs, not Pallas kernels",
-        "launches": step_launches["segment_sum"],
-        "step_launches": step_launches["segment_sum"],
-        "train_launches": train_launches["segment_sum"],
-        "mesh_launches": mesh_launches["segment_sum"],
-        "program_launches": program_launches["segment_sum"],
-        "bench_launches": bench_launches["segment_sum"],
-        "profile_launches": profile_launches["segment_sum"],
-        "max_abs_err": max(r["max_abs_err"] for r in g1.values()),
-        **{k: sum(r[k] for r in g1.values())
-           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
-                     "library_ms")},
-        "bound_by": max(g1.values(), key=lambda r: r["bound_ms"])["bound_by"],
-        "library": "index_add_ of the int64 fixed-point values (and its "
-                   "zero fill)",
-        "sites": g1})
+    for name, site, replaces in (
+            ("face_corner_sum", "corner",
+             "ugrt/diff/fastgrad.py:129 (_face_corners_bwd, the transpose "
+             "of gather_face_corners / gather_face_data)"),
+            ("segment_sum", "material",
+             "ugrt/diff/fastgrad.py:172 (_rows_bwd, the transpose of "
+             "gather_rows)")):
+        r = g1[site]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ugrt_torch/csrc/segment_sum.cu",
+            "replaces": replaces + ": a custom VJP, not a Pallas kernel",
+            "launches": step_launches[name],
+            "step_launches": step_launches[name],
+            "train_launches": train_launches[name],
+            "mesh_launches": mesh_launches[name],
+            "program_launches": program_launches[name],
+            "bench_launches": bench_launches[name],
+            "profile_launches": profile_launches[name],
+            **{k: r[k] for k in ("max_abs_err", "ms", "kernel_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "library": "index_add_ of the int64 fixed-point values (and its "
+                       "zero fill)",
+            "site": r})
     kernels += probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

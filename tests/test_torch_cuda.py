@@ -914,31 +914,56 @@ SEGMENT_CASES = ("material", "corner", "one row, shared", "one row, large",
                  "runs 31-257", "cutoff below", "cutoff above", "40 binades",
                  "inf", "nan", "empty", "1 column", "6 columns", "9 columns",
                  "96 columns")
+FACE_CASES = ("step corner", "one face", "shared vertices",
+              "degenerate faces", "misses to face 0", "runs 31-257",
+              "random faces", "40 binades", "inf", "nan", "empty")
+
+
+def _g1_bitwise(case, name):
+    """The case's G1 sum (micro.gather_bwd.sums) twice through its
+    wrapper: each launch counted, each bitwise the plain version."""
+    from ugrt_torch.micro import gather_bwd
+
+    fn, plain = gather_bwd.sums(case)
+    want = plain(*case)
+    before = fn.launches
+    outs = [fn(*case), fn(*case)]
+    assert fn.launches == before + 2
+    for out in outs:
+        assert out.device.type == "cuda" and out.shape == want.shape
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (
+            name, int((out.view(torch.int32) != want.view(torch.int32)).sum()))
 
 
 @pytest.mark.parametrize("case", SEGMENT_CASES)
 def test_segment_sum_matches_plain_on_card(card, case):
-    """G1 bitwise segment_sum_plain (NaN bits included) at the flagship
-    step's two shapes and on micro.gather_bwd's skewed cases, through the
-    wrapper (twice: the same bits).  The cases reach each of the kernel's
-    tables by their shapes (test_torch_gather's
-    test_skewed_cases_cover_every_table)."""
-    from ugrt_torch.kernels import segment_sum as g1
+    """G1 bitwise its plain version (NaN bits included) at the flagship
+    step's two shapes (the material sum; the corner sum keyed by face) and
+    on micro.gather_bwd's skewed cases, through the wrapper (twice: the
+    same bits).  The cases reach each of the kernel's tables by their
+    shapes (test_torch_gather's test_skewed_cases_cover_every_table)."""
     from ugrt_torch.micro import gather_bwd
 
     cases = (gather_bwd.flagship_cases(card)
              if case in ("material", "corner")
              else gather_bwd.skewed_cases(card))
-    values, idx, rows = cases[case]
-    want = g1.segment_sum_plain(values, idx, rows)
-    before = g1.segment_sum.launches
-    outs = [g1.segment_sum(values, idx, rows),
-            g1.segment_sum(values, idx, rows)]
-    assert g1.segment_sum.launches == before + 2
-    for out in outs:
-        assert out.device.type == "cuda" and out.shape == want.shape
-        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (
-            case, int((out.view(torch.int32) != want.view(torch.int32)).sum()))
+    _g1_bitwise(cases[case], case)
+
+
+@pytest.mark.parametrize("case", FACE_CASES)
+def test_face_corner_sum_matches_plain_on_card(card, case):
+    """G1's face-keyed sum bitwise face_corner_sum_plain (NaN bits
+    included) on the flagship step's own corner sum (recorded from one
+    eager windowed step) and on micro.gather_bwd's face cases, through
+    the wrapper, twice."""
+    from ugrt_torch.micro import gather_bwd
+
+    if case == "step corner":
+        args = gather_bwd.record_inputs()["corner"]
+        assert len(args) == 4
+    else:
+        args = gather_bwd.face_cases(card)[case]
+    _g1_bitwise(args, case)
 
 
 def _near_power_of_two(rng, m):
@@ -966,7 +991,8 @@ def test_segment_sum_ignores_alignment_on_card(card):
     rng = np.random.default_rng(5)
     for trial in range(4):
         flat = torch.from_numpy(_near_power_of_two(rng, 3 * n)).to(card)
-        idx = torch.from_numpy(rng.integers(0, 700, n)).to(card)
+        idx = torch.from_numpy(rng.integers(0, 700, n).astype(
+            np.int32)).to(card)
         unaligned = flat[1:].view(n, 3)
         assert unaligned.data_ptr() % 16
         aligned = unaligned.clone()
@@ -984,32 +1010,49 @@ def test_step_backward_launches_g1_on_the_calling_thread(card,
                                                        monkeypatch):
     """render_and_grad's backward runs on the thread that calls it, not
     on autograd's worker thread, so a capture's G1 launches come from the
-    capturing thread (core/program.py)."""
+    capturing thread (core/program.py): the face-keyed corner sum and the
+    material sum, each once, and no index_add_ kernel (indexFunc*)."""
     import threading
+
+    from torch.profiler import ProfilerActivity, profile
 
     from ugrt_torch import bridge
     from ugrt_torch.core import gather
     from ugrt_torch.diff.render_grad import render_and_grad
 
-    threads, original = [], gather.segment_sum
+    threads = []
 
-    def record(values, idx, rows):
-        threads.append(threading.get_ident())
-        return original(values, idx, rows)
+    def recorder(name):
+        original = getattr(gather, name)
 
-    monkeypatch.setattr(gather, "segment_sum", record)
+        def record(*args):
+            threads.append((name, threading.get_ident()))
+            return original(*args)
+        return record
+
+    for name in ("face_corner_sum", "segment_sum"):
+        monkeypatch.setattr(gather, name, recorder(name))
     scene = procedural.cornell_box(subdiv=2)
     cfg = dataclasses.replace(RenderConfig(), screen_width=64,
                               screen_height=64, grid_x=8, grid_y=8)
     t = bridge.scene_to_torch(scene, card)
     cc = bridge.camcoords_to_torch(CAMERA, cfg.fovy_deg, 1.0, card)
-    render_and_grad.fn(
-        t["vertices"], t["materials"], t["faces"], t["mat_index"], cc,
-        cc[None], bridge.from_numpy(np.asarray(CAMERA.eye), card, np.float32),
-        torch.zeros((64, 64, 3), device=card), cfg=cfg,
-        capacity=cfg.pair_capacity(scene.num_faces), num_lights=1,
-        use_spot=True)
-    assert threads == [threading.get_ident()] * 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render_and_grad.fn(
+            t["vertices"], t["materials"], t["faces"], t["mat_index"], cc,
+            cc[None],
+            bridge.from_numpy(np.asarray(CAMERA.eye), card, np.float32),
+            torch.zeros((64, 64, 3), device=card), cfg=cfg,
+            capacity=cfg.pair_capacity(scene.num_faces), num_lights=1,
+            use_spot=True)
+        torch.cuda.synchronize()
+    assert sorted(threads) == [("face_corner_sum", threading.get_ident()),
+                               ("segment_sum", threading.get_ident())]
+    names = {e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA"}
+    assert any("face_accumulate_kernel" in n for n in names), names
+    assert any("row_accumulate_kernel" in n for n in names), names
+    assert not any("indexFunc" in n for n in names), names
 
 
 def test_gather_rows_backward_launches_g1_on_card(card):
@@ -1037,6 +1080,50 @@ def test_gather_rows_backward_launches_g1_on_card(card):
                  if e.device_type.name == "CUDA"}
         if device == card:
             assert g1.segment_sum.launches == before + 1
-            assert any("segment_accumulate_kernel" in n for n in names), names
+            assert any("row_accumulate_kernel" in n for n in names), names
             assert not any("indexFunc" in n for n in names), names
     assert torch.equal(grads[0], grads[1])
+
+
+def test_face_gathers_backward_launch_g1_on_card(card):
+    """On CUDA tensors gather_face_corners's and gather_face_data's
+    backward launch G1's face-keyed kernel and no index_add_ kernel, and
+    equal the CPU's backward and the per-corner gather_rows's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ugrt_torch.core.gather import (gather_face_corners,
+                                        gather_face_data, gather_rows)
+    from ugrt_torch.kernels import segment_sum as g1
+
+    rng = np.random.default_rng(4)
+    table = torch.tensor(rng.normal(size=(300, 3)), dtype=torch.float32)
+    faces = torch.from_numpy(rng.integers(0, 300, (150, 3)).astype(np.int32))
+    fid = torch.from_numpy(np.repeat(rng.integers(0, 150, 64 * 12), 4)
+                           .astype(np.int32).reshape(64, 48))
+    aux = torch.from_numpy(rng.normal(size=(150, 2)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(64, 48, 3, 3)).astype(np.float32))
+    grads = []
+    for kind in ("corners", "data", "rows"):
+        for device in ("cpu", card):
+            t = table.to(device).requires_grad_(True)
+            f, i = faces.to(device), fid.to(device)
+            if kind == "corners":
+                out = gather_face_corners(t, f, i)
+            elif kind == "data":
+                out = gather_face_data(t, f, aux.to(device), i)[0]
+            else:
+                out = gather_rows(t, f[i.long()].long())
+            assert torch.equal(out.cpu(), table[faces[fid.long()].long()])
+            before = g1.face_corner_sum.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                (g,) = torch.autograd.grad(out, t, cot.to(device))
+                torch.cuda.synchronize()
+            grads.append(g.cpu())
+            names = {e.key for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"}
+            if device == card and kind != "rows":
+                assert g1.face_corner_sum.launches == before + 1
+                assert any("face_accumulate_kernel" in n for n in names), names
+                assert not any("indexFunc" in n for n in names), names
+    for g in grads[1:]:
+        assert torch.equal(g.view(torch.int32), grads[0].view(torch.int32))

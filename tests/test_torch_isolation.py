@@ -76,7 +76,8 @@ def test_port_imports_nothing_of_ugrt():
         "        'ugrt_torch.micro.profile_chain', 'ugrt_torch.micro.render_samples',",
         "        'ugrt_torch.micro.trace_psum_overlap',",
         "        'ugrt_torch.kernels.segment_sum',",
-        "        'ugrt_torch.micro.gather_bwd'} <= set(names)",
+        "        'ugrt_torch.micro.gather_bwd',",
+        "        'ugrt_torch.micro.profile_crash'} <= set(names)",
         *imports,
         "assert not [m for m in sys.modules if m.startswith('ugrt.')]",
         "print(len(names))",

@@ -25,6 +25,7 @@ import gzip
 import json
 import re
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +44,8 @@ from ugrt.scene import procedural as proc_j
 from ugrt.trace import primary as primary_j
 from ugrt_torch import bridge
 from ugrt_torch.micro import (capture_trace, parse_trace, profile_chain,
-                              render_samples, trace_psum_overlap)
+                              profile_crash, render_samples,
+                              trace_psum_overlap)
 from ugrt_torch.scene import procedural
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -293,14 +295,35 @@ def test_render_samples_cpu(tiny_cfg, tmp_path):
 
 
 @pytest.mark.parametrize("module", [profile_chain, capture_trace,
-                                    render_samples, trace_psum_overlap])
+                                    render_samples, trace_psum_overlap,
+                                    profile_crash])
 def test_main_refuses_to_run_without_a_card(monkeypatch, module, tmp_path):
     """A card-only main exits non-zero with the "CUDA is not available"
     message and writes nothing; nothing runs on the CPU instead."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = [] if module is profile_chain else ["--out", str(tmp_path / "o")]
+    argv = ([] if module in (profile_chain, profile_crash)
+            else ["--out", str(tmp_path / "o")])
     with pytest.raises(SystemExit) as e:
         module.main(argv)
     assert e.value.code not in (0, None)
     assert "CUDA is not available" in str(e.value.code)
     assert not (tmp_path / "o").exists()
+
+
+def test_profile_crash_names_exist_in_chip_smoke():
+    """profile_crash patches chip_smoke.py's phase functions and reads its
+    G1 kernel names by name: every one of them exists there (and the two
+    sums of core.gather that --plain-sums replaces), so that a renamed
+    phase is refused instead of being added as a new attribute."""
+    import importlib.util
+
+    from ugrt_torch.core import gather
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_names", root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert profile_crash.missing_names(cs, gather) == []
+    assert set(cs.G1_KERNELS) == {"face_corner_sum", "segment_sum"}
+    assert "profiling_phase" in profile_crash.missing_names(object(), gather)

@@ -37,10 +37,11 @@ A backward in a body runs on the capturing thread
 ``render_and_grad`` and ``dist.mesh`` do), not on autograd's worker
 thread.  Late in a full run of ``chip_smoke.py``, a replay of the
 step's graph under torch.profiler crashed the process (SIGSEGV inside
-CUPTI's callback of ``cuGraphLaunch``, in libcuda): in 8 of 9 runs with
-the step's G1 launches made from the worker thread into the capture,
-and still in about half of them with the backward on the capturing
-thread.  What CUPTI reads there is not known (PERF.md §7).
+CUPTI's callback of ``cuGraphLaunch``, in libcuda) while the step held
+the first version of G1's kernels.  ``micro.profile_crash`` drives that
+sequence; with those kernels it crashed in some of its runs, with the
+present ones in none so far, too few runs to tell the two apart; what
+CUPTI reads there is not known (PERF.md §7).
 
 Kernel launch counts.  A replay runs the kernels that the capture
 recorded without running their Python wrappers, so ``counters`` (objects

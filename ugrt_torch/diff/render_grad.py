@@ -10,9 +10,10 @@ The CUDA kernels are invisible to autograd, so the trace runs on
 binary and carries no gradient; darkening uses the f32 /3
 (``add_shadows_f32``) so it still scales the gradients of shadowed
 pixels.  The backward is autograd's; the corner and material gathers'
-(``core.gather.gather_rows``) are its only sums over pixels, exact in
-fixed point (the kernel G1 on the card), so the gradients' bits do not
-depend on summation order.
+(``core.gather.gather_face_data`` and ``gather_rows``) are its only
+sums over pixels, exact in fixed point (the kernel G1 on the card: a
+face-keyed sum and a row sum), so the gradients' bits do not depend on
+summation order.
 
 ``render_and_grad`` is one captured program per static key
 (``core.program``), as ugrt's is jitted: on the card the forward, the
@@ -32,7 +33,7 @@ from ugrt_torch.core.program import Program
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
-from ugrt_torch.kernels.segment_sum import segment_sum
+from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
@@ -78,7 +79,8 @@ def render_color(vertices, materials, faces, mat_index, camcoords,
 
 @functools.partial(
     Program, static=("cfg", "capacity", "num_lights", "use_spot"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, segment_sum))
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep,
+              face_corner_sum, segment_sum))
 def render_and_grad(vertices, materials, faces, mat_index, camcoords,
                     light_camcoords, light_position, target, *,
                     cfg: RenderConfig, capacity: int, num_lights: int,

@@ -2,7 +2,7 @@
 
 The sources make two libraries, each with a plain C interface loaded
 with ctypes: ``kernels``, the sweeps K1-K3 of the frame, step and
-training paths, the reflection DDA D1 and the step's segment sum G1,
+training paths, the reflection DDA D1 and the step's segment sums G1,
 and ``probes``, the probes S1-S3 that only ``ugrt_torch.micro``
 launches, so a renderer's first frame waits for nvcc on the main paths'
 kernels alone.  Each ``.cu`` file of a library compiles
@@ -72,6 +72,7 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
                              _P, _P, _P, _P),
         "ugrt_segment_sum": (_P, _P, _L, _I, _I, _P, _P, _I, _P),
+        "ugrt_face_corner_sum": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

@@ -1,18 +1,26 @@
-"""G1 — the fixed-point segment sum of ``gather_rows``'s backward (CUDA:
-``csrc/segment_sum.cu``).
+"""G1 — the fixed-point segment sums of the step's gathers' backwards
+(CUDA: ``csrc/segment_sum.cu``).
 
-Replaces ugrt's transposes of its row gathers (ugrt/diff/fastgrad.py):
-``_face_corners_bwd`` (:129-156, sort, prefix sum and CSR differences,
-twice) and ``_rows_bwd`` (:172-183, a one-hot product at HIGHEST
-precision).  Neither is a Pallas kernel.  ``out[r] = sum of values[i]
-over idx[i] == r``, summed in 64-bit fixed point as core/gather.py's
-docstring sets out, so the bits do not depend on the order of the sum.
+Replaces ugrt's transposes of its gathers (ugrt/diff/fastgrad.py):
+``_face_corners_bwd`` (:129-156, a sort by face, prefix sums and CSR
+differences, then the same at 3F rows onto the vertices) by
+``face_corner_sum``, and ``_rows_bwd`` (:172-183, a one-hot product at
+HIGHEST precision) by ``segment_sum``.  Neither is a Pallas kernel.
+Both sum in 64-bit fixed point, as core/gather.py's docstring sets out,
+so the bits do not depend on the order of the sum:
 
-``segment_sum`` launches the kernel for CUDA tensors and runs
-``segment_sum_plain`` only for CPU tensors.  The kernel takes ``Σ|v|``
-in another order than the plain version's ``torch.sum``; the two give
-other bits only when that sum lies within its rounding of a power of
-two (core/gather.py).
+- ``segment_sum(values, idx, rows)``: ``out[r] = sum of values[i] over
+  idx[i] == r`` (``gather_rows``, the material gather);
+- ``face_corner_sum(values, fid, faces, rows)``: ``values`` [N, 9] holds
+  pixel p's corner cotangents (corner j, column c at 3 j + c), keyed by
+  face; the sum of ``values.reshape(-1, 3)`` keyed by
+  ``faces[fid].reshape(-1)`` (``gather_face_corners``, the corner
+  gather).
+
+Each launches the kernel for CUDA tensors and runs its plain version
+only for CPU tensors.  The kernel takes ``Σ|v|`` in another order than
+the plain versions' ``torch.sum``; the two give other bits only when
+that sum lies within its rounding of a power of two (core/gather.py).
 """
 
 from __future__ import annotations
@@ -25,16 +33,18 @@ from ugrt_torch.kernels import _build
 
 _FRAC_BITS = 62
 # The scale pass's block partials in the scratch (csrc/segment_sum.cu,
-# kPartials), rows * columns up to which the kernel accumulates in
-# shared memory (kSharedEntries), and the bytes of its shared hash table
-# (kHashBytes).
+# kPartials), keys * columns up to which the kernel accumulates in a
+# shared table of every key (kSharedEntries), and the bytes of its
+# shared hash table of keys (kHashBytes).
 PARTIALS = 1024
-SHARED_ENTRIES = 4096
-HASH_BYTES = 24 * 1024
+SHARED_ENTRIES = 2048
+HASH_BYTES = 16 * 1024
 # Blocks of the accumulate pass per SM (all resident at once), and their
-# threads (csrc/segment_sum.cu, kThreads).
-BLOCKS_PER_SM = 4
+# threads (csrc/segment_sum.cu, kBlocksPerSM and kThreads).
+BLOCKS_PER_SM = 2
 THREADS = 256
+# The face-keyed sum's columns: three corners of three coordinates.
+CORNER_COLUMNS = 9
 
 
 def fixed_point(values):
@@ -52,25 +62,34 @@ def fixed_point(values):
 def segment_sum_plain(values, idx, rows: int):
     """Deterministic ``out[r] = sum of values[i] over idx[i] == r``.
 
-    values: [N, ...] floating point; idx: [N] int64 in [0, rows) (one
-    outside raises, as ``index_add_`` does).  Returns [rows, ...] of
+    values: [N, ...] floating point; idx: [N] int32 or int64 in [0, rows)
+    (one outside raises, as ``index_add_`` does).  Returns [rows, ...] of
     ``values.dtype``.
     """
     fixed, shift, total = fixed_point(values)
     acc = torch.zeros((rows,) + tuple(values.shape[1:]), dtype=torch.int64,
                       device=values.device)
-    acc.index_add_(0, idx, fixed)
+    acc.index_add_(0, idx.long(), fixed)
     out = torch.ldexp(acc.double(), -shift)
     out = torch.where(torch.isfinite(total), out, torch.nan)
     return out.to(values.dtype)
 
 
-def table(rows: int, cols: int) -> str:
-    """The accumulate pass's table that the kernel picks for ``rows`` x
-    ``cols`` (csrc/segment_sum.cu, ugrt_segment_sum): every row in shared
-    memory ("direct"), a shared hash table of rows ("hashed"), or, for
-    rows too wide for 32 hash slots, the global accumulator ("global")."""
-    if rows * cols <= SHARED_ENTRIES:
+def face_corner_sum_plain(values, fid, faces, rows: int):
+    """``face_corner_sum``'s plain version: ``segment_sum_plain`` of the
+    corners, ``values.reshape(-1, 3)`` keyed by ``faces[fid]``."""
+    return segment_sum_plain(values.reshape(-1, 3),
+                             faces[fid].reshape(-1).long(), rows)
+
+
+def table(keys: int, cols: int) -> str:
+    """The table of the accumulate pass that the kernel picks for
+    ``keys`` x ``cols`` (csrc/segment_sum.cu, run): every key in shared
+    memory ("direct"), a shared hash table of keys ("hashed"), or, for
+    rows too wide for 32 hash slots (more than 63 columns), the global
+    accumulator ("global").
+    The face-keyed sum's keys are the faces, of 9 columns."""
+    if keys * cols <= SHARED_ENTRIES:
         return "direct"
     slots = 1
     while slots * 2 * (8 * cols + 4) <= HASH_BYTES:
@@ -78,43 +97,99 @@ def table(rows: int, cols: int) -> str:
     return "hashed" if slots >= 32 else "global"
 
 
-def _check(values, idx, rows, dtype=None):
-    """Raise unless values ([N, ...], of ``dtype``, or of any floating
-    dtype for None) and idx ([N] int64) are contiguous on one device."""
-    dev = values.device
-    if not isinstance(rows, int) or rows < 0:
-        raise ValueError(f"rows must be an int >= 0, got {rows!r}")
+def _check_values(values, dtype):
+    """Raise unless values ([N, ...]) is contiguous and of ``dtype``, or
+    of any floating dtype for None; returns its device."""
     if dtype is None:
         if not values.is_floating_point():
             raise TypeError(f"values: expected a floating dtype, got "
                             f"{values.dtype}")
         dtype = values.dtype
     _build.check_tensor(values, "values", dtype,
-                        (None,) + tuple(values.shape[1:]), dev)
-    _build.check_tensor(idx, "idx", torch.int64, (values.shape[0],), dev)
-    if rows * math.prod(values.shape[1:]) >= 2**31:
+                        (None,) + tuple(values.shape[1:]), values.device)
+    return values.device
+
+
+def _check_rows(rows, cols):
+    if not isinstance(rows, int) or rows < 0:
+        raise ValueError(f"rows must be an int >= 0, got {rows!r}")
+    if rows * cols >= 2**31:
         raise ValueError("segment_sum: rows * columns must be below 2^31")
 
 
-def _launch(values, idx, rows):
-    """The kernel on f32 CUDA tensors (anything else raises)."""
-    _check(values, idx, rows, torch.float32)
+def _check(values, idx, rows, dtype=None):
+    """Raise unless values ([N, ...], of ``dtype``, or of any floating
+    dtype for None) and idx ([N] int32) are contiguous on one device."""
+    dev = _check_values(values, dtype)
+    _build.check_tensor(idx, "idx", torch.int32, (values.shape[0],), dev)
+    _check_rows(rows, math.prod(values.shape[1:]))
+
+
+def _check_faces(values, fid, faces, rows, dtype=None):
+    """Raise unless values ([N, 9]), fid ([N] int32) and faces ([F, 3]
+    int32) are contiguous on one device."""
+    dev = _check_values(values, dtype)
+    if values.dim() != 2 or values.shape[1] != CORNER_COLUMNS:
+        raise ValueError(f"values: shape {tuple(values.shape)}, expected "
+                         f"(*, {CORNER_COLUMNS})")
+    _build.check_tensor(fid, "fid", torch.int32, (values.shape[0],), dev)
+    _build.check_tensor(faces, "faces", torch.int32, (None, 3), dev)
+    _check_rows(rows, 3)
+    if faces.shape[0] * CORNER_COLUMNS >= 2**31:
+        raise ValueError("face_corner_sum: faces * 9 must be below 2^31")
+
+
+def _scratch(values, rows, cols):
+    """The kernel's scratch: the accumulator, the total and the partials
+    (no fill: the scale pass zeroes the accumulator)."""
+    return torch.empty((rows * cols + 1 + PARTIALS,), dtype=torch.int64,
+                       device=values.device)
+
+
+def _grid(values):
+    sms = torch.cuda.get_device_properties(values.device).multi_processor_count
+    return max(1, min(-(-values.shape[0] // THREADS), BLOCKS_PER_SM * sms))
+
+
+def _cuda_only(values, what):
     if values.device.type != "cuda":
-        raise ValueError(f"segment_sum's CUDA kernel needs CUDA tensors, "
-                         f"not {values.device}")
-    n = values.shape[0]
+        raise ValueError(f"{what}'s CUDA kernel needs CUDA tensors, not "
+                         f"{values.device}")
+
+
+def _launch(values, idx, rows):
+    """``segment_sum``'s kernel on f32 CUDA tensors (anything else
+    raises)."""
+    _check(values, idx, rows, torch.float32)
+    _cuda_only(values, "segment_sum")
     cols = math.prod(values.shape[1:])
     out = torch.empty((rows,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
     if rows * cols == 0:
         return out
-    scratch = torch.zeros((rows * cols + 2 + PARTIALS,), dtype=torch.int64,
-                          device=values.device)
-    sms = torch.cuda.get_device_properties(values.device).multi_processor_count
-    grid = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
-    _build.launch("ugrt_segment_sum", values, idx, n, rows, cols, scratch,
-                  out, grid)
+    _build.launch("ugrt_segment_sum", values, idx, values.shape[0], rows,
+                  cols, _scratch(values, rows, cols), out, _grid(values))
     return out
+
+
+def _launch_faces(values, fid, faces, rows):
+    """``face_corner_sum``'s kernel on f32 CUDA tensors (anything else
+    raises)."""
+    _check_faces(values, fid, faces, rows, torch.float32)
+    _cuda_only(values, "face_corner_sum")
+    out = torch.empty((rows, 3), dtype=torch.float32, device=values.device)
+    if rows == 0:
+        return out
+    _build.launch("ugrt_face_corner_sum", values, fid, faces,
+                  values.shape[0], faces.shape[0], rows,
+                  _scratch(values, rows, 3), out, _grid(values))
+    return out
+
+
+def _device_route(values, what):
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {values.device}")
+    return values.device.type == "cuda"
 
 
 def segment_sum(values, idx, rows: int):
@@ -123,19 +198,38 @@ def segment_sum(values, idx, rows: int):
     version for CPU ones.
 
     values: [N, ...] contiguous, f32 on the card, any floating dtype on
-    the CPU; idx: [N] contiguous int64 in [0, rows) (core/gather.py: on
+    the CPU; idx: [N] contiguous int32 in [0, rows) (core/gather.py: on
     the card an index outside adds nothing, on the CPU it raises).
     Returns [rows, ...] of values' dtype.
     """
     _check(values, idx, rows)
-    if values.device.type == "cpu":
+    if not _device_route(values, "segment_sum"):
         return segment_sum_plain(values, idx, rows)
-    if values.device.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {values.device}")
     out = _launch(values, idx, rows)
     if out.numel():
         segment_sum.launches += 1
     return out
 
 
+def face_corner_sum(values, fid, faces, rows: int):
+    """The corner cotangents ``values`` [N, 9] of N pixels summed onto
+    the ``rows`` vertices of their faces, ``faces[fid]``, in fixed point
+    (the module docstring): the CUDA kernel for CUDA tensors, the plain
+    version for CPU ones.
+
+    values: [N, 9] contiguous, f32 on the card, any floating dtype on the
+    CPU; fid: [N] contiguous int32 in [0, F); faces: [F, 3] contiguous
+    int32 in [0, rows) (on the card a face or vertex outside adds
+    nothing, on the CPU it raises).  Returns [rows, 3] of values' dtype.
+    """
+    _check_faces(values, fid, faces, rows)
+    if not _device_route(values, "face_corner_sum"):
+        return face_corner_sum_plain(values, fid, faces, rows)
+    out = _launch_faces(values, fid, faces, rows)
+    if out.numel():
+        face_corner_sum.launches += 1
+    return out
+
+
 segment_sum.launches = 0
+face_corner_sum.launches = 0

@@ -1,34 +1,36 @@
-"""G1, the gathers' fixed-point segment sum, on the card: the inputs the
-flagship step gives it, what they ask of a kernel, and its time against
-another tree's.
+"""G1, the step's fixed-point segment sums, on the card: the inputs the
+flagship step gives them, what they ask of the kernel, and their time
+against another tree's.
 
     python -m ugrt_torch.micro.gather_bwd [--parent DIR] [--iters N]
-        [--inputs saved.pt] [--out results.json]
+        [--out results.json]
 
 Runs one eager windowed flagship step (``render_and_grad.fn`` on
 ``ugrt_torch.bench``'s workload: 1024², the 73,824-face procedural
-cathedral, spot, a zero target) and records the inputs of each call of
-``core.gather.segment_sum``, the backward of ``gather_rows``: the corner
-gather (``trace/refine.py``: [H*W*3, 3] cotangents into the vertices)
-and the material gather (``shade/shaders.py``: [H*W, 6] into the
-materials).  For each it prints ``profile``: the contributions that are
-exactly zero after rounding to the fixed point, and how the indices fall
-in the 32-element groups a warp's lanes take (distinct rows a group,
-contributions that share their row with another lane of the group, and
-the global atomics a warp-aggregated kernel issues: one per distinct row
-and column of a group whose sum is not zero, against ``index_add_``'s
-one per contribution).
+cathedral, spot, a zero target) and records the inputs of its two sums
+(``record_inputs``): the corner sum, the backward of
+``gather_face_data`` (``trace/refine.py``: [H*W, 9] cotangents keyed by
+face, ``face_corner_sum``), and the material sum, the backward of
+``gather_rows`` (``shade/shaders.py``: [H*W, 6] into the materials,
+``segment_sum``).  For each it prints ``profile``: the contributions
+that are exactly zero after rounding to the fixed point, and the keys
+(faces, or rows) as the accumulate pass's warps meet them, 32 elements
+a step: distinct keys a step, the steps of one key and of several, the
+runs a warp carries across its steps, the flushes, their non-zero
+additions to the block's table and the blocks' non-zero additions to
+the global accumulator, and the keys and rows touched.
 
 Then, in a fresh process per tree (with ``--parent DIR``, an unpacked
 checkout of another commit, in the order parent, this tree, this tree,
-parent), on the recorded inputs: the tree's ``segment_sum`` (what the
-step runs), its plain version and ``index_add_`` of the fixed-point
-values alone, each as CUDA-event ms over back-to-back calls and as the
-device time and launches of each CUDA kernel of one call
-(torch.profiler); the tree's ``segment_sum`` held bitwise to its plain
-version.  In the same process the windowed flagship frame without the
-bounce (``bench_reflective.run``, chained), and beside it ``python -m
-ugrt_torch.bench --skip-parity`` (the step's replay, chained and
+parent), each tree records its own step's sums (a tree before the
+face-keyed sum sums the corners by vertex) and times on them: the
+sum the step runs, its plain version and ``index_add_`` of the
+fixed-point values alone, each as CUDA-event ms over back-to-back calls,
+the sum as a CUDA graph replay, and the device time and launches of each
+CUDA kernel of one call (torch.profiler); the sum held bitwise to its
+plain version.  In the same process the windowed flagship frame without
+the bounce (``bench_reflective.run``, chained), and beside it ``python
+-m ugrt_torch.bench --skip-parity`` (the step's replay, chained and
 fenced).  One JSON line per tree; all go to ``--out``.  Card only.
 """
 
@@ -62,20 +64,40 @@ def _values(rng, n, cols, binades=20):
     return v.astype(np.float32)
 
 
-def _pixel_patches(rng, count, w=8, h=4):
-    """[PIXELS] int64 of 1024² pixels in row-major order, each 8x4 patch
-    of them one value drawn from [0, count)."""
-    patch = rng.integers(0, count, size=(1024 // h, 1024 // w))
-    return np.repeat(np.repeat(patch, h, axis=0), w, axis=1).reshape(-1)
+def _pixel_patches(rng, count, w=8, h=4, pixels=PIXELS, width=1024):
+    """[pixels] int64 of an image ``width`` wide in row-major order (its
+    last row cut short), each w x h patch of it one value drawn from [0,
+    count)."""
+    rows = -(-pixels // width)
+    patch = rng.integers(0, count, size=(-(-rows // h), width // w))
+    return np.repeat(np.repeat(patch, h, axis=0), w,
+                     axis=1).reshape(-1)[:pixels]
+
+
+def _runs(rng, count, n, lengths):
+    """[n] int64: runs of a value drawn from [0, count), each run's length
+    drawn from ``lengths``."""
+    runs = np.repeat(rng.integers(0, count, n), rng.choice(lengths, n))
+    return runs[:n]
+
+
+def _torch_case(device, *arrays_and_rows):
+    """A case's numpy arrays as tensors on ``device`` (f32 values, int32
+    keys and faces), the row count last."""
+    *arrays, rows = arrays_and_rows
+    return tuple(torch.from_numpy(a if a.dtype == np.float32
+                                  else a.astype(np.int32)).to(device)
+                 for a in arrays) + (rows,)
 
 
 def flagship_cases(device, seed=0) -> dict:
-    """{name: (values, idx, rows)} at the flagship step's two shapes, made
-    from ``seed``: the material gather's [1,048,576, 6] into 5 rows (its
-    first three columns zero, as the Ka quirk leaves them; materials by
-    8x4 pixel patches) and the corner gather's [3,145,728, 3] into 39,030
-    vertices (each patch one face of random corners); a tenth of the
-    pixels miss, with zero cotangents on row 0 or face 0's corners."""
+    """{name: case} at the flagship step's two shapes, made from ``seed``:
+    the material sum's (values [1,048,576, 6], idx, 5 rows; its first
+    three columns zero, as the Ka quirk leaves them; materials by 8x4
+    pixel patches) and the corner sum's (values [1,048,576, 9], fid,
+    faces [73,824, 3] of random vertices, 39,030 rows; faces by 8x4
+    pixel patches); a tenth of the pixels miss, with zero cotangents on
+    row 0 or face 0.  ``sums`` runs either kind."""
     rng = np.random.default_rng(seed)
     miss = rng.random(PIXELS) < 0.1
     mat = np.where(miss, 0, _pixel_patches(rng, MATERIALS))
@@ -83,26 +105,26 @@ def flagship_cases(device, seed=0) -> dict:
     vm[:, :3] = 0
     vm[miss] = 0
     faces = rng.integers(0, VERTICES, size=(FACES, 3))
-    corners = faces[np.where(miss, 0, _pixel_patches(rng, FACES))]
-    vc = _values(rng, PIXELS * 3, 3)
-    vc[np.repeat(miss, 3)] = 0
-    return {name: (torch.from_numpy(v).to(device),
-                   torch.from_numpy(i.reshape(-1).astype(np.int64)).to(device),
-                   rows)
-            for name, v, i, rows in (("material", vm, mat, MATERIALS),
-                                     ("corner", vc, corners, VERTICES))}
+    fid = np.where(miss, 0, _pixel_patches(rng, FACES))
+    vc = _values(rng, PIXELS, 9)
+    vc[miss] = 0
+    return {"material": _torch_case(device, vm, mat, MATERIALS),
+            "corner": _torch_case(device, vc, fid, faces, VERTICES)}
 
 
-def skewed_cases(device, seed=0, n=200_000, cutoff=4096) -> dict:
+def skewed_cases(device, seed=0, n=200_000, cutoff=None) -> dict:
     """{name: (values, idx, rows)} of ``n`` elements each (but "empty"),
-    made from ``seed``: every contribution on one row, in a table that
-    fits shared memory and in one that does not; runs of equal rows of
-    31, 33, 255 and 257 elements (across warp and block edges); tables
-    of rows * 3 entries just below and just above ``cutoff`` (the
-    kernel's SHARED_ENTRIES); cotangents across 40 binades with one
-    huge value; a non-finite total (inf, NaN); N = 0; 1, 6 and 9
-    columns; and n / 20 elements of 96 columns, rows too wide for the
-    kernel's shared hash table (its global table)."""
+    made from ``seed``, for ``segment_sum``: every contribution on one
+    row, in a table that fits shared memory and in one that does not;
+    runs of equal rows of 31, 33, 255 and 257 elements (across warp and
+    block edges); tables of rows * 3 entries just below and just above
+    ``cutoff`` (default the kernel's SHARED_ENTRIES); cotangents across
+    40 binades with one huge value; a non-finite total (inf, NaN); N =
+    0; 1, 6 and 9 columns; and n / 20 elements of 96 columns, rows too
+    wide for the kernel's shared hash table (its global table)."""
+    from ugrt_torch.kernels.segment_sum import SHARED_ENTRIES
+
+    cutoff = SHARED_ENTRIES if cutoff is None else cutoff
     rng = np.random.default_rng(seed)
     runs = np.repeat(np.arange(n), rng.choice([31, 33, 255, 257], n))[:n]
     below, above = (cutoff - 1) // 3, cutoff // 3 + 1
@@ -129,16 +151,82 @@ def skewed_cases(device, seed=0, n=200_000, cutoff=4096) -> dict:
     cases["40 binades"][0][n // 2] = 1e3
     cases["inf"][0][n // 3, 1] = np.inf
     cases["nan"][0][n // 5, 2] = np.nan
-    return {name: (torch.from_numpy(v).to(device),
-                   torch.from_numpy(i.astype(np.int64)).to(device), rows)
-            for name, (v, i, rows) in cases.items()}
+    return {name: _torch_case(device, *case) for name, case in cases.items()}
+
+
+def face_cases(device, seed=0, n=200_000) -> dict:
+    """{name: (values [n, 9], fid, faces, rows)} made from ``seed``, for
+    ``face_corner_sum``: every pixel on one face; faces that share their
+    vertices (200 faces on 50 vertices, runs of 1-300 pixels); degenerate
+    faces that repeat a vertex (two or three times); misses clamped to
+    face 0 with zero cotangents among 8x4 patches; runs of 31, 33, 255 and
+    257 pixels, which change face inside a warp's step and inside its
+    span; a random face each pixel of 73,824 (more faces in a block than
+    its hash table holds: the misses go to the global accumulator); 40
+    binades with one huge value; a non-finite total (inf, NaN); N = 0.
+    Tables of up to 227 faces take the kernel's direct table, larger
+    ones its hash table."""
+    rng = np.random.default_rng(seed)
+
+    def faces_of(count, verts):
+        return np.stack([rng.choice(verts, 3, replace=False)
+                         for _ in range(count)])
+
+    big = faces_of(FACES, VERTICES)
+    shared = faces_of(200, 50)
+    degenerate = np.concatenate([faces_of(40, 300), rng.integers(
+        0, 300, (20, 1)).repeat(3, 1), np.stack([[v, v, w] for v, w in
+                                                 rng.integers(0, 300,
+                                                              (20, 2))])])
+    miss = rng.random(n) < 0.1
+    patched = np.where(miss, 0, _pixel_patches(rng, 200, pixels=n, width=64))
+    v_miss = _values(rng, n, 9)
+    v_miss[miss] = 0
+    cases = {
+        "one face": (_values(rng, n, 9), np.full(n, 7), big, VERTICES),
+        "shared vertices": (_values(rng, n, 9),
+                            _runs(rng, 200, n, np.arange(1, 301)), shared, 50),
+        "degenerate faces": (_values(rng, n, 9),
+                             _runs(rng, 80, n, [1, 7, 40, 300]), degenerate,
+                             300),
+        "misses to face 0": (v_miss, patched, faces_of(200, 3000), 3000),
+        "runs 31-257": (_values(rng, n, 9),
+                        _runs(rng, FACES, n, [31, 33, 255, 257]), big,
+                        VERTICES),
+        "random faces": (_values(rng, n, 9), rng.integers(0, FACES, n), big,
+                         VERTICES),
+        "40 binades": (_values(rng, n, 9, binades=40),
+                       _runs(rng, 150, n, [5, 60]), big[:150], VERTICES),
+        "inf": (_values(rng, n, 9), _runs(rng, 150, n, [5, 60]), big[:150],
+                VERTICES),
+        "nan": (_values(rng, n, 9), _runs(rng, 150, n, [5, 60]), big[:150],
+                VERTICES),
+        "empty": (np.zeros((0, 9), np.float32), np.zeros(0, np.int64),
+                  big[:10], VERTICES),
+    }
+    cases["40 binades"][0][n // 2, 4] = 1e3
+    cases["inf"][0][n // 3, 1] = np.inf
+    cases["nan"][0][n // 5, 8] = np.nan
+    return {name: _torch_case(device, *case) for name, case in cases.items()}
+
+
+def sums(case):
+    """(the wrapper, its plain version) of a case: ``segment_sum`` for
+    (values, idx, rows), ``face_corner_sum`` for (values, fid, faces,
+    rows)."""
+    from ugrt_torch.kernels import segment_sum as g1
+
+    if len(case) == 4:
+        return g1.face_corner_sum, g1.face_corner_sum_plain
+    return g1.segment_sum, g1.segment_sum_plain
 
 
 def record_inputs(args: dict | None = None, kw: dict | None = None) -> dict:
-    """{site: dict(values, idx, rows)} of the segment sums of one eager
-    step ``render_and_grad.fn(**args, **kw)``, as the backward hands them
-    over ("material": rows = the materials', else "corner").  By default
-    the windowed flagship step of ``ugrt_torch.bench``'s workload."""
+    """{site: case} of the sums of one eager step ``render_and_grad.fn(
+    **args, **kw)``, as the backward hands them over: "material" (values,
+    idx, rows) and "corner" (values, fid, faces, rows; in a tree before
+    the face-keyed sum, values, idx, rows).  By default the windowed
+    flagship step of ``ugrt_torch.bench``'s workload."""
     from ugrt_torch import bench
     from ugrt_torch.core import gather
     from ugrt_torch.diff.render_grad import render_and_grad
@@ -148,57 +236,147 @@ def record_inputs(args: dict | None = None, kw: dict | None = None) -> dict:
         args = bench.step_inputs(w, torch.device("cuda"))
         kw = dict(cfg=w.cfg, capacity=w.capacity, num_lights=1,
                   use_spot=True)
-    sites, original = {}, gather.segment_sum
+    sites = {}
+    names = [n for n in ("segment_sum", "face_corner_sum")
+             if hasattr(gather, n)]
+    originals = {n: getattr(gather, n) for n in names}
 
-    def record(values, idx, rows):
-        site = ("material" if rows == args["materials"].shape[0]
-                else "corner")
-        sites[site] = dict(values=values.detach().clone(), idx=idx.clone(),
-                           rows=rows)
-        return original(values, idx, rows)
+    def recorder(name):
+        def record(values, *keys_and_rows):
+            rows = keys_and_rows[-1]
+            site = ("material" if rows == args["materials"].shape[0]
+                    else "corner")
+            sites[site] = (values.detach().clone(),
+                           *(k.clone() for k in keys_and_rows[:-1]), rows)
+            return originals[name](values, *keys_and_rows)
+        return record
 
-    gather.segment_sum = record
+    for n in names:
+        setattr(gather, n, recorder(n))
     try:
         render_and_grad.fn(**args, **kw)
     finally:
-        gather.segment_sum = original
+        for n, f in originals.items():
+            setattr(gather, n, f)
     torch.cuda.synchronize()
     return sites
 
 
-def profile(values, idx, rows: int) -> dict:
-    """What these inputs ask of a kernel (module docstring)."""
-    from ugrt_torch.kernels.segment_sum import fixed_point
+def warp_layout(n: int, sms: int = 132) -> tuple[int, int]:
+    """(warps, span): the accumulate pass's warps and the elements each
+    walks (kernels/segment_sum.py: min(ceil(n / THREADS), BLOCKS_PER_SM *
+    sms) blocks of THREADS / 32 warps)."""
+    from ugrt_torch.kernels import segment_sum as g1
 
-    n = idx.numel()
+    blocks = max(1, min(-(-n // g1.THREADS), g1.BLOCKS_PER_SM * sms))
+    warps = blocks * (g1.THREADS // WARP)
+    return warps, -(-n // (warps * WARP)) * WARP
+
+
+def profile(case, sms: int = 132) -> dict:
+    """What a case asks of the kernel (module docstring): the per-step
+    view of its keys (rows, or faces for the corner sum) as the
+    accumulate pass's warps meet them on a card of ``sms`` SMs."""
+    from ugrt_torch.kernels.segment_sum import THREADS, fixed_point
+
+    values, keys, *faces, rows = case
+    count = faces[0].shape[0] if faces else rows     # the keys
+    n = keys.numel()
     c = values.numel() // max(n, 1)
     fixed, _, total = fixed_point(values.reshape(n, c))
     zero = fixed == 0
-    groups = (n + WARP - 1) // WARP
-    pad = groups * WARP - n
-    lanes = torch.cat([idx, idx.new_full((pad,), -1)]).reshape(groups, WARP)
+    dev = keys.device
+    k = keys.long()
+    warps, span = warp_layout(max(n, 1), sms)
+    steps = (n + WARP - 1) // WARP
+    pad = steps * WARP - n
+    lanes = torch.cat([k, k.new_full((pad,), -1)]).reshape(steps, WARP)
     srt = lanes.sort(dim=1).values
     starts = torch.ones_like(srt, dtype=torch.bool)
     starts[:, 1:] = srt[:, 1:] != srt[:, :-1]
     distinct = starts.sum(1) - (srt[:, 0] < 0).long()
-    # Each lane's (group, row) key; a row's sum within its group.
-    key = torch.arange(groups, device=idx.device).repeat_interleave(
-        WARP)[:n] * rows + idx
-    uniq, inv, counts = torch.unique(key, return_inverse=True,
-                                     return_counts=True)
-    sums = torch.zeros((uniq.numel(), c), dtype=torch.int64,
-                       device=idx.device).index_add_(0, inv, fixed)
-    shared = counts[inv] > 1
-    return dict(
-        n=n, columns=c, rows=rows, total=float(total),
+    one = distinct == 1
+    mixed = distinct > 1
+    # The carry after a step is its last lane's key; before it, the key
+    # the warp's last step with keys left (csrc/segment_sum.cu).
+    valid = lanes >= 0
+    last_lane = WARP - 1 - valid.flip(1).long().argmax(1)
+    last = lanes.gather(1, last_lane[:, None]).squeeze(1)
+    warp = torch.arange(steps, device=dev) * WARP // span
+    live = (distinct > 0).nonzero().squeeze(1)
+    lk, lw = last[live], warp[live]
+    first = torch.ones_like(lk, dtype=torch.bool)
+    first[1:] = lw[1:] != lw[:-1]
+    before = torch.where(first, -1, torch.roll(lk, 1))
+    change = lk != before
+    run_after = torch.cumsum(change.long(), 0) - 1
+    run_before = torch.where(first, -1, torch.roll(run_after, 1))
+    carry_before = torch.full((steps,), -1, dtype=torch.int64, device=dev)
+    carry_before[live] = before
+    rb = torch.full((steps,), -1, dtype=torch.int64, device=dev)
+    rb[live] = run_before
+    ra = torch.full((steps,), -1, dtype=torch.int64, device=dev)
+    ra[live] = run_after
+    # Each element's flush: the carried run it joins, or its step's group
+    # of a third key; the non-zero column sums of the flushes are the
+    # table additions, and each block's non-zero (key, column) entries at
+    # its end the global additions.
+    elem = torch.arange(n, device=dev)
+    st = elem // WARP
+    runs = int(change.sum())
+    flush_key = torch.where(
+        k == carry_before[st], rb[st],
+        torch.where(k == last[st], ra[st], runs + st * count + k))
+    uniq, inv = torch.unique(flush_key, return_inverse=True)
+    flush_sums = torch.zeros((uniq.numel(), c), dtype=torch.int64,
+                             device=dev).index_add_(0, inv, fixed)
+    block = elem // span // (THREADS // WARP)
+    bkey, binv = torch.unique(block * count + k, return_inverse=True)
+    block_sums = torch.zeros((bkey.numel(), c), dtype=torch.int64,
+                             device=dev).index_add_(0, binv, fixed)
+    rec = dict(
+        n=n, columns=c, keys=count, rows=rows, total=float(total),
         contributions=n * c, zero_contributions=int(zero.sum()),
-        all_zero_elements=int(zero.all(1).sum()),
-        distinct_rows_per_group=float(distinct.double().mean()),
-        distinct_rows_per_group_max=int(distinct.max()),
-        elements_sharing_their_row_in_group=int(shared.sum()),
-        group_atomics_nonzero=int((sums != 0).sum()),
-        group_atomics=int(uniq.numel()) * c,
-        rows_touched=int(torch.unique(idx).numel()))
+        all_zero_elements=int(zero.all(1).sum()) if n else 0,
+        warps=warps, span=span, steps=steps,
+        distinct_keys_per_step=float(distinct.double().mean()) if n else 0.0,
+        distinct_keys_per_step_max=int(distinct.max()) if n else 0,
+        one_key_steps=int(one.sum()), mixed_steps=int(mixed.sum()),
+        carried_runs=runs,
+        steps_per_run=float(live.numel()) / max(runs, 1),
+        group_flushes=int((uniq >= runs).sum()),
+        flushes=int(uniq.numel()),
+        table_additions=int((flush_sums != 0).sum()),
+        global_additions=int((block_sums != 0).sum()),
+        keys_touched=int(torch.unique(k).numel()))
+    if faces:
+        rec["rows_touched"] = int(torch.unique(
+            faces[0][torch.unique(k)].long()).numel())
+    else:
+        rec["rows_touched"] = rec["keys_touched"]
+    return rec
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean CUDA-event ms of fn() captured as one CUDA graph and replayed
+    ``iters`` times back to back (its device work without host gaps)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def device_kernels(fn, iters: int = 5) -> dict:
@@ -216,49 +394,53 @@ def device_kernels(fn, iters: int = 5) -> dict:
             for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
-def _tree_functions():
-    """(segment_sum as the step calls it, its plain version) in this
-    process's tree: the kernel's wrapper where the tree has one, else
-    core.gather's index_add_ version (both)."""
-    try:
-        from ugrt_torch.kernels import segment_sum as tree_g1
-    except ImportError:
-        from ugrt_torch.core import gather
-        return gather.segment_sum, gather.segment_sum
-    return tree_g1.segment_sum, tree_g1.segment_sum_plain
+def _tree_sums(case):
+    """(the sum the step calls, its plain version, fixed_point) for a
+    case in this process's tree: ``sums`` where the tree has the
+    face-keyed sum, else its row sum."""
+    from ugrt_torch.kernels import segment_sum as tree_g1
+
+    if hasattr(tree_g1, "face_corner_sum"):
+        return (*sums(case), tree_g1.fixed_point)
+    return tree_g1.segment_sum, tree_g1.segment_sum_plain, tree_g1.fixed_point
 
 
-def time_inputs(path: str, iters: int) -> dict:
-    """This process's tree on the saved inputs, then its windowed frame
-    (module docstring)."""
+def index_add_call(case, fixed_point):
+    """index_add_ of the fixed-point values alone, with its zero fill
+    (the library yardstick; a face case's corner index, faces[fid], made
+    beforehand)."""
+    values, keys, *faces, rows = case
+    if faces:
+        values = values.reshape(-1, 3)
+        keys = faces[0][keys].reshape(-1)
+    idx, fixed = keys.long(), fixed_point(values)[0]
+    shape = (rows,) + tuple(values.shape[1:])
+    return lambda: torch.zeros(shape, dtype=torch.int64,
+                               device=idx.device).index_add_(0, idx, fixed)
+
+
+def time_inputs(iters: int) -> dict:
+    """This process's tree on its own step's sums (``record_inputs``),
+    then its windowed frame (module docstring)."""
     from ugrt_torch import bench
     from ugrt_torch.micro import bench_reflective
     from ugrt_torch.micro._common import card_line, cuda_ms
 
-    fn, plain = _tree_functions()
     rec = dict(tree=os.getcwd(), card=card_line(), sites={})
-    for site, s in torch.load(path).items():
-        values, idx, rows = s["values"].cuda(), s["idx"].cuda(), s["rows"]
-        want = plain(values, idx, rows)
-        fixed = s["fixed"].cuda()
-        acc_shape = (rows,) + tuple(values.shape[1:])
-
-        def index_add():
-            return torch.zeros(acc_shape, dtype=torch.int64,
-                               device=values.device).index_add_(0, idx, fixed)
-
-        def mismatches(f):
-            got = f(values, idx, rows)
-            return int((got.view(torch.int32)
-                        != want.view(torch.int32)).sum())
-
+    for site, case in sorted(record_inputs().items()):
+        fn, plain, fixed_point = _tree_sums(case)
+        want = plain(*case)
+        got = fn(*case)
+        index_add = index_add_call(case, fixed_point)
         rec["sites"][site] = dict(
-            mismatches=mismatches(fn),
-            ms=cuda_ms(lambda: fn(values, idx, rows), iters),
-            plain_ms=cuda_ms(lambda: plain(values, idx, rows), iters),
+            shape=list(case[0].shape), mismatches=int(
+                (got.view(torch.int32) != want.view(torch.int32)).sum()),
+            ms=cuda_ms(lambda: fn(*case), iters),
+            graph_ms=graph_ms(lambda: fn(*case), iters),
+            plain_ms=cuda_ms(lambda: plain(*case), iters),
             index_add_ms=cuda_ms(index_add, iters),
-            kernels=device_kernels(lambda: fn(values, idx, rows)),
-            plain_kernels=device_kernels(lambda: plain(values, idx, rows)),
+            kernels=device_kernels(lambda: fn(*case)),
+            plain_kernels=device_kernels(lambda: plain(*case)),
             index_add_kernels=device_kernels(index_add))
     w = bench.workload("cuda")
     with tempfile.TemporaryDirectory() as d:
@@ -270,7 +452,7 @@ def time_inputs(path: str, iters: int) -> dict:
     return rec
 
 
-def in_turns(trees, here, inputs: str, iters: int) -> list:
+def in_turns(trees, here, iters: int) -> list:
     """Each tree's ``time_inputs`` and ``python -m ugrt_torch.bench
     --skip-parity`` in fresh processes, in the order of ``trees``."""
     records = []
@@ -278,7 +460,7 @@ def in_turns(trees, here, inputs: str, iters: int) -> list:
         env = dict(os.environ, PYTHONPATH=str(tree))
         rec = {}
         for argv in ([str(Path(__file__).resolve()), "--time-only",
-                      "--inputs", inputs, "--iters", str(iters)],
+                      "--iters", str(iters)],
                      ["-m", "ugrt_torch.bench", "--skip-parity"]):
             proc = subprocess.run([sys.executable, *argv], cwd=tree, env=env,
                                   capture_output=True, text=True,
@@ -305,44 +487,32 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="root of another tree to time beside "
                     "this one")
-    ap.add_argument("--inputs", help="where the recorded inputs are saved, "
-                    "in a directory .gitignore lists (default "
-                    "_archive/g1_inputs.pt)")
     ap.add_argument("--out", help="also write the records to this file")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--time-only", action="store_true",
-                    help="time the saved inputs in this process and stop")
+                    help="time this tree's sums in this process and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gather_bwd needs an NVIDIA GPU")
-    inputs = str(Path(args.inputs or "_archive/g1_inputs.pt").resolve())
     if args.time_only:
-        print(json.dumps(time_inputs(inputs, args.iters)), flush=True)
+        print(json.dumps(time_inputs(args.iters)), flush=True)
         return 0
 
-    from ugrt_torch.kernels.segment_sum import fixed_point
     from ugrt_torch.micro._common import card_line
 
     here = Path(__file__).resolve().parents[2]
-    Path(inputs).parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    sites = record_inputs()
-    for s in sites.values():
-        s["fixed"] = fixed_point(s["values"])[0]
-    torch.save({k: {n: (x.cpu() if torch.is_tensor(x) else x)
-                    for n, x in s.items()} for k, s in sites.items()},
-               inputs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = []
-    for site, s in sites.items():
-        rec = dict(site=site, card=card_line(), **profile(
-            s["values"], s["idx"], s["rows"]))
+    for site, case in sorted(record_inputs().items()):
+        rec = dict(site=site, card=card_line(), **profile(case, sms))
         records.append(rec)
         print(json.dumps(rec), flush=True)
     print(f"recorded and profiled in {time.perf_counter() - t0:.1f} s",
           flush=True)
     trees = [here] if args.parent is None else [
         Path(args.parent).resolve(), here, here, Path(args.parent).resolve()]
-    records += in_turns(trees, here, inputs, args.iters)
+    records += in_turns(trees, here, args.iters)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))

@@ -6,11 +6,12 @@ Semantics as in ugrt: view-space transforms use the 3x3 rotation of the
 shade-time camera (the last light's, main.cu:170); ambient 0.5, diffuse
 1.0; Ka aliases Kd and the diffuse term takes |N.L| under the quirks;
 misses shade black; shadowed pixels divide their u8 RGB by 3.
-``gather.gather_rows`` fetches the materials, with a fixed-point backward
-that sums exactly in any order (ugrt's TPU row gather, shaders.py:58-80,
-sums by a one-hot matmul): on the card the kernel G1
-(kernels/segment_sum.py), which sums the few material rows in shared
-memory before one atomic per row and column a block.
+``gather.gather_rows`` fetches the materials with int32 indices, as
+ugrt's does (shaders.py:74-80), with a fixed-point backward that sums
+exactly in any order (ugrt's TPU row gather sums by a one-hot matmul):
+on the card the kernel G1 (kernels/segment_sum.py), whose warps carry
+their pixels' material in registers while it stays the same and add
+into a shared table of the few rows only when it changes.
 """
 
 from __future__ import annotations
@@ -50,13 +51,12 @@ def shade_core(primary, shade_camcoords, light_position, primary_eye,
         rows = primary["aux"]
         idx = rows[..., 0].to(torch.int32)
         valid = (tri >= 0) & (rows[..., 1] > 0)
-        mats = gather_rows(materials,
-                           torch.clamp(idx, 0, num_materials - 1).long())
+        mats = gather_rows(materials, torch.clamp(idx, 0, num_materials - 1))
     else:
         idx = torch.where(tri >= 0,
                           mat_index[torch.clamp(tri, min=0).long()], -1)
         valid = (idx >= 0) & (idx < num_materials)
-        mats = gather_rows(materials, torch.clamp(idx, min=0).long())
+        mats = gather_rows(materials, torch.clamp(idx, min=0))
     ka = mats[..., 3:6] if cfg.quirks.ka_from_kd else mats[..., 0:3]
     kd = mats[..., 3:6]
 

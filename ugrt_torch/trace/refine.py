@@ -7,12 +7,13 @@ the Möller–Trumbore t (trace_kernel.cu:4-45) and the geometric normal
 autograd carries the image's gradient into ``vertices[faces[fid]]``:
 exact almost everywhere (away from visibility edges) at O(pixels) cost.
 
-ugrt gathers the corners through custom VJPs that sort the cotangents
-by face and take prefix-sum differences (diff/fastgrad.py:93-160); here
-``gather.gather_rows`` fetches them and sums its backward in fixed point,
-exact in any order: on the card the kernel G1 (kernels/segment_sum.py),
-which groups a warp's equal vertices before its integer atomics.  The |t| and |normal| quirks take
-``vecmath.absolute``, whose derivative at 0 is ugrt's.
+As ugrt does (refine.py:45-67), the corners come from one [F, 9] per-face
+table (with ``face_aux``, [F, 9 + A]) and one row gather a pixel,
+``gather.gather_face_corners`` / ``gather_face_data``; their backward
+sums the pixels' cotangents keyed by face onto the vertices in fixed
+point, exact in any order: on the card the kernel G1
+(``kernels.segment_sum.face_corner_sum``).  The |t| and |normal| quirks
+take ``vecmath.absolute``, whose derivative at 0 is ugrt's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ugrt_torch.config import RenderConfig
-from ugrt_torch.core.gather import gather_rows
+from ugrt_torch.core.gather import gather_face_corners, gather_face_data
 from ugrt_torch.core.vecmath import absolute, cross, dot, normalize
 
 
@@ -40,8 +41,12 @@ def refine_primary(vertices, faces, camcoords, primary_raw,
     eye = camcoords[0:3]
     hit = fid >= 0
     H, W = fid.shape
-    f = torch.clamp(fid, min=0).reshape(-1).long()
-    v = gather_rows(vertices, faces[f].long())         # [H*W, 3, 3]
+    f = torch.clamp(fid, min=0).reshape(-1)
+    aux = None
+    if face_aux is not None:
+        v, aux = gather_face_data(vertices, faces, face_aux, f)
+    else:
+        v = gather_face_corners(vertices, faces, f)    # [H*W, 3, 3]
     d = dirs.reshape(H * W, 3)
     v0 = v[:, 0]
     e1 = v[:, 1] - v0
@@ -65,6 +70,6 @@ def refine_primary(vertices, faces, camcoords, primary_raw,
     out = dict(t=torch.where(hit, t.reshape(H, W), -1.0), face_id=fid,
                normal=torch.where(hit[..., None], n.reshape(H, W, 3), -1.0),
                ray_dir=dirs, u=u.reshape(H, W), v=vv.reshape(H, W))
-    if face_aux is not None:
-        out["aux"] = face_aux[f].reshape((H, W) + face_aux.shape[1:])
+    if aux is not None:
+        out["aux"] = aux.reshape((H, W) + face_aux.shape[1:])
     return out
