@@ -1,4 +1,4 @@
-"""ugrt_torch's checkpoints, stage timer, optimizer and training loop vs
+"""ugrt_torch's checkpoints, optimizer and training loop vs
 ugrt's (tests/test_api.py:55-130).
 
 Tolerances:
@@ -28,7 +28,6 @@ from ugrt.diff import render_grad
 from ugrt.scene import procedural
 from ugrt_torch import bridge
 from ugrt_torch.api import checkpoint as ckpt_t
-from ugrt_torch.api import profiler
 from ugrt_torch.api import train as train_t
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -96,21 +95,6 @@ def test_checkpoint_refuses_orbax(tmp_path):
             ckpt_t.load_checkpoint(p, step)
     ckpt_t.save_checkpoint(p, {"x": np.zeros(2, np.float32)}, step=1)
     assert ckpt_t.load_checkpoint(p)["x"][0] == 0
-
-
-def test_stage_timer_and_trace(tmp_path):
-    timer = profiler.StageTimer()
-    with timer.stage("a"):
-        sum(range(1000))
-    out = timer.time_stage("b", lambda: torch.arange(10))
-    assert out.shape == (10,)
-    with timer.stage("a", result_holder={"x": [out]}):
-        pass
-    rep = timer.report()
-    assert "a" in rep and "b" in rep and "x2" in rep
-    with profiler.trace_to(str(tmp_path / "trace")):
-        torch.ones(64).sum()
-    assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
 def _exact_adam(p0, grads, lr=LR, b1=0.9, b2=0.999, eps=1e-8):

@@ -13,8 +13,11 @@ frames with the spotlight; PPMs (and PNGs) are written by
 renders ``render_frame_reflective`` as ugrt's CLI does (aspect 1, the
 light camera's matrices even under ``--no-shadows``): on the card each
 frame replays its captured program (frames 0 and 1 each record one, for
-Lambert and the spotlight), and the frame's line says which.  Plain
-frames are timed by a ``StageTimer``, whose report ends the run.
+Lambert and the spotlight), and the frame's line says which.  The run
+records the program's spans (``api.profiler.tracing``) and ends with
+their report: per span, calls, host ms and self ms per call, device ms
+per call where the span has events, and the counters (among them
+``program.captures``).
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ def main(argv=None):
 
     from ugrt_torch import bridge
     from ugrt_torch.api import io
-    from ugrt_torch.api.profiler import StageTimer
+    from ugrt_torch.api import profiler
     from ugrt_torch.api.renderer import Renderer, render_frame_reflective
     from ugrt_torch.config import RenderConfig
     from ugrt_torch.core.host_camera import CameraSpec
@@ -105,46 +108,45 @@ def main(argv=None):
 
     os.makedirs(args.out, exist_ok=True)
     renderer = Renderer(scenes[0], cfg, device=args.device)
-    timer = StageTimer()
-    for frame in range(args.frames):
-        scene = scenes[min(frame, len(scenes) - 1)]
-        renderer.update_vertices(scene.vertices)
-        t0 = time.perf_counter()
-        how = ""
-        if args.reflect:
-            keys = render_frame_reflective.cache_size()
-            cc, lcc = (bridge.camcoords_to_torch(s, cfg.fovy_deg, 1.0,
-                                                 renderer.device)
-                       for s in (camera_spec, light_spec))
-            out = render_frame_reflective(
-                renderer.vertices, renderer.faces, renderer.mat_index,
-                renderer.materials, cc, lcc[None],
-                bridge.from_numpy(args.light_position, renderer.device,
-                                  np.float32),
-                cfg=cfg, capacity=renderer.capacity,
-                num_lights=len(lights), use_spot=frame >= 1)
-            if renderer.device.type != "cuda":
-                how = " (reflective program, eager on the CPU)"
-            elif render_frame_reflective.cache_size() > keys:
-                how = " (reflective program: captured, then replayed)"
+    with profiler.tracing(renderer.device) as rec:
+        for frame in range(args.frames):
+            scene = scenes[min(frame, len(scenes) - 1)]
+            renderer.update_vertices(scene.vertices)
+            t0 = time.perf_counter()
+            how = ""
+            if args.reflect:
+                keys = render_frame_reflective.cache_size()
+                cc, lcc = (bridge.camcoords_to_torch(s, cfg.fovy_deg, 1.0,
+                                                     renderer.device)
+                           for s in (camera_spec, light_spec))
+                out = render_frame_reflective(
+                    renderer.vertices, renderer.faces, renderer.mat_index,
+                    renderer.materials, cc, lcc[None],
+                    bridge.from_numpy(args.light_position, renderer.device,
+                                      np.float32),
+                    cfg=cfg, capacity=renderer.capacity,
+                    num_lights=len(lights), use_spot=frame >= 1)
+                if renderer.device.type != "cuda":
+                    how = " (reflective program, eager on the CPU)"
+                elif render_frame_reflective.cache_size() > keys:
+                    how = " (reflective program: captured, then replayed)"
+                else:
+                    how = " (reflective program: one graph replay)"
             else:
-                how = " (reflective program: one graph replay)"
-        else:
-            out = timer.time_stage("frame", renderer.render, camera_spec,
-                                   lights, args.light_position)
-        img = out["image"].cpu().numpy()
-        dt = time.perf_counter() - t0
-        if bool(out["overflow"]):
-            print(f"warning: frame {frame}: grid capacity overflow "
-                  "(geometry clipped)")
-        name = os.path.join(args.out, f"{args.tag}-{frame}")
-        io.write_ppm(name + ".ppm", np.asarray(img), flip=args.flip)
-        if args.png:
-            io.write_png(name + ".png", img, flip=args.flip)
-        print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device}{how} -> "
-              f"{name}.ppm" + (" (+.png)" if args.png else ""))
+                out = renderer.render(camera_spec, lights, args.light_position)
+            img = out["image"].cpu().numpy()
+            dt = time.perf_counter() - t0
+            if bool(out["overflow"]):
+                print(f"warning: frame {frame}: grid capacity overflow "
+                      "(geometry clipped)")
+            name = os.path.join(args.out, f"{args.tag}-{frame}")
+            io.write_ppm(name + ".ppm", np.asarray(img), flip=args.flip)
+            if args.png:
+                io.write_png(name + ".png", img, flip=args.flip)
+            print(f"frame {frame}: {dt * 1000:.1f} ms on {args.device}{how}"
+                  f" -> {name}.ppm" + (" (+.png)" if args.png else ""))
 
-    print(timer.report())
+    print(rec.report())
 
 
 if __name__ == "__main__":

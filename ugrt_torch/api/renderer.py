@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ugrt_torch import bridge
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.host_camera import CameraSpec
 from ugrt_torch.core.program import Program
@@ -104,44 +105,47 @@ def render_frame_reflective(vertices, faces, mat_index, materials,
                         light_camcoords, light_position, cfg=cfg,
                         capacity=capacity, num_lights=num_lights,
                         use_spot=use_spot)
-    primary = base["primary"]
-    lo = vertices.amin(dim=0) - 1e-3            # the padded scene AABB
-    hi = vertices.amax(dim=0) + 1e-3
-    ugrid = gbuild.build_uniform_grid(vertices, faces, lo, hi,
-                                      grid_dims=uniform_dims,
-                                      capacity=uniform_capacity)
+    # The bounce: the uniform grid, the mirror rays, their shading, the mix.
+    with profiler.span("frame.bounce", device=True):
+        primary = base["primary"]
+        lo = vertices.amin(dim=0) - 1e-3            # the padded scene AABB
+        hi = vertices.amax(dim=0) + 1e-3
+        ugrid = gbuild.build_uniform_grid(vertices, faces, lo, hi,
+                                          grid_dims=uniform_dims,
+                                          capacity=uniform_capacity)
 
-    # Signed normals for the mirror (the abs quirk is display-only).
-    normals = tprimary.face_normals(vertices, faces)
-    fid = primary["face_id"]
-    prim_signed = dict(t=primary["t"], face_id=fid,
-                       normal=normals[torch.clamp(fid, min=0).long()],
-                       ray_dir=primary["ray_dir"])
-    refl = treflect.reflection_pass(
-        vertices, faces, prim_signed, ugrid, lo, hi, uniform_dims, cfg,
-        camcoords[0:3], max_batches=max_batches, batch=reflect_batch)
+        # Signed normals for the mirror (the abs quirk is display-only).
+        normals = tprimary.face_normals(vertices, faces)
+        fid = primary["face_id"]
+        prim_signed = dict(t=primary["t"], face_id=fid,
+                           normal=normals[torch.clamp(fid, min=0).long()],
+                           ray_dir=primary["ray_dir"])
+        refl = treflect.reflection_pass(
+            vertices, faces, prim_signed, ugrid, lo, hi, uniform_dims, cfg,
+            camcoords[0:3], max_batches=max_batches, batch=reflect_batch)
 
-    rfid = refl["face_id"]
-    rn = normals[torch.clamp(rfid, min=0).long()]
-    if cfg.quirks.abs_normal:
-        rn = torch.abs(rn)
-    refl_primary = dict(t=refl["t"], face_id=rfid, normal=rn,
-                        ray_dir=refl["ray_dir"])
-    shade_cc = (light_camcoords[num_lights - 1] if num_lights > 0
-                else camcoords)
-    refl_color = _shade_at_points(refl_primary, refl["origin"], shade_cc,
-                                  light_position, mat_index, materials, cfg)
+        rfid = refl["face_id"]
+        rn = normals[torch.clamp(rfid, min=0).long()]
+        if cfg.quirks.abs_normal:
+            rn = torch.abs(rn)
+        refl_primary = dict(t=refl["t"], face_id=rfid, normal=rn,
+                            ray_dir=refl["ray_dir"])
+        shade_cc = (light_camcoords[num_lights - 1] if num_lights > 0
+                    else camcoords)
+        refl_color = _shade_at_points(refl_primary, refl["origin"],
+                                      shade_cc, light_position, mat_index,
+                                      materials, cfg)
 
-    kr = torch.full((), reflectivity, dtype=torch.float32,
-                    device=vertices.device)
-    mixed = ((1.0 - kr) * base["color"]
-             + kr * torch.where((rfid >= 0)[..., None], refl_color, 0.0))
-    image = (torch.clamp(mixed, 0.0, 1.0) * 255.0).to(torch.uint8)
-    return dict(image=image, color=mixed, reflection=refl,
-                shadowed=base["shadowed"], primary=primary,
-                uniform_grid=ugrid,
-                overflow=base["overflow"] | ugrid.overflow
-                | refl["overflow"])
+        kr = torch.full((), reflectivity, dtype=torch.float32,
+                        device=vertices.device)
+        mixed = ((1.0 - kr) * base["color"]
+                 + kr * torch.where((rfid >= 0)[..., None], refl_color, 0.0))
+        image = (torch.clamp(mixed, 0.0, 1.0) * 255.0).to(torch.uint8)
+        return dict(image=image, color=mixed, reflection=refl,
+                    shadowed=base["shadowed"], primary=primary,
+                    uniform_grid=ugrid,
+                    overflow=base["overflow"] | ugrid.overflow
+                    | refl["overflow"])
 
 
 # ugrt/api/renderer.py:109-111 (its static arguments but the chunk size,
@@ -210,8 +214,11 @@ class Renderer:
         self.frame_cnt = 0
 
     def update_vertices(self, vertices):
-        """Dynamic scenes / animation: swap in new vertex positions."""
-        self.vertices = bridge.from_numpy(vertices, self.device, np.float32)
+        """Dynamic scenes / animation: swap in new vertex positions (the
+        span ``renderer.upload``)."""
+        with profiler.span("renderer.upload"):
+            self.vertices = bridge.from_numpy(vertices, self.device,
+                                              np.float32)
 
     def _camcoords(self, spec):
         cfg = self.cfg

@@ -13,7 +13,9 @@ the ranks of the default process group (``dist.mesh.sharded_train_step``,
 a captured program too, its collectives inside the graph): every rank
 calls ``train()``, as under ``torchrun``, renders its strip of tile
 columns and takes the gradients summed over the group.  The checkpoint
-barrier and the step's one host read stay outside the program.
+barrier and the step's one host read stay outside the program.  A step
+is the span ``train.step`` (``api.profiler``), Adam the device span
+``train.adam`` inside it.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.distributed as dist
 
 from ugrt_torch import bridge
 from ugrt_torch.api import checkpoint as ckpt
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.host_camera import CameraSpec
 from ugrt_torch.diff.render_grad import render_and_grad
@@ -132,30 +135,34 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
     opt = make_optimizer([vertices, materials], tcfg.learning_rate)
     log = []
     for step in range(start_step, tcfg.steps):
-        out = grads_for(step % len(camera_specs))
-        vertices.grad = (out["grad_vertices"] if tcfg.optimize_vertices
-                         else torch.zeros_like(vertices))
-        materials.grad = (out["grad_materials"] if tcfg.optimize_materials
-                          else torch.zeros_like(materials))
-        opt.step()
-        # ONE host read for both scalars: the loss read the loop pays
-        # anyway doubles as the overflow check.
-        loss_v, ovf_v = torch.stack(
-            [out["loss"], out["overflow"].to(torch.float32)]).tolist()
-        if ovf_v:
-            raise RuntimeError(
-                "static capacity overflow during training step: "
-                "geometry was clipped and gradients are corrupt — "
-                "raise RenderConfig.pair_capacity_factor / "
-                "heavy_capacity / shadow work capacity")
-        log.append(loss_v)
-        if verbose and (step % 10 == 0 or step == tcfg.steps - 1):
-            print(f"step {step}: loss {loss_v:.6f}")
-        if (tcfg.checkpoint_dir and (step + 1) % tcfg.checkpoint_every == 0
-                and (mesh is None or mesh.rank == 0)):
-            ckpt.save_checkpoint(
-                tcfg.checkpoint_dir,
-                {"params": {"vertices": vertices, "materials": materials}},
-                step)
+        with profiler.span("train.step", request=True):
+            out = grads_for(step % len(camera_specs))
+            vertices.grad = (out["grad_vertices"] if tcfg.optimize_vertices
+                             else torch.zeros_like(vertices))
+            materials.grad = (out["grad_materials"]
+                              if tcfg.optimize_materials
+                              else torch.zeros_like(materials))
+            with profiler.span("train.adam", device=True):
+                opt.step()
+            # ONE host read for both scalars: the loss read the loop pays
+            # anyway doubles as the overflow check.
+            loss_v, ovf_v = torch.stack(
+                [out["loss"], out["overflow"].to(torch.float32)]).tolist()
+            if ovf_v:
+                raise RuntimeError(
+                    "static capacity overflow during training step: "
+                    "geometry was clipped and gradients are corrupt — "
+                    "raise RenderConfig.pair_capacity_factor / "
+                    "heavy_capacity / shadow work capacity")
+            log.append(loss_v)
+            if verbose and (step % 10 == 0 or step == tcfg.steps - 1):
+                print(f"step {step}: loss {loss_v:.6f}")
+            if (tcfg.checkpoint_dir
+                    and (step + 1) % tcfg.checkpoint_every == 0
+                    and (mesh is None or mesh.rank == 0)):
+                ckpt.save_checkpoint(
+                    tcfg.checkpoint_dir, {"params": {
+                        "vertices": vertices, "materials": materials}},
+                    step)
 
     return vertices.detach(), materials.detach(), log

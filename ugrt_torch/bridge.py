@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ugrt_torch import config
+from ugrt_torch.api import profiler
 from ugrt_torch.core import host_camera
 from ugrt_torch.scene import model
 
@@ -71,6 +72,8 @@ def camcoords_to_torch(spec, fovy_deg: float, aspect: float,
     """The packed camcoords[64] of a camera spec, f32 on ``device``.
 
     The matrices are computed on the host in numpy by the GL-faithful
-    camera code (``core.host_camera``), exactly as ugrt does."""
-    return from_numpy(host_camera.camcoords_from_spec(spec, fovy_deg, aspect),
-                      device, np.float32)
+    camera code (``core.host_camera``), exactly as ugrt does (the span
+    ``bridge.camera``: the matrices and their upload)."""
+    with profiler.span("bridge.camera"):
+        return from_numpy(host_camera.camcoords_from_spec(
+            spec, fovy_deg, aspect), device, np.float32)

@@ -48,6 +48,17 @@ recorded without running their Python wrappers, so ``counters`` (objects
 with an int ``launches``, the kernel wrappers) are credited with each
 replay's launches: the launches the wrappers counted while they were
 recorded, which launched nothing.
+
+Spans (``api.profiler``).  A call is the span ``program.call`` (binding,
+key, input copies, replay, output clones); the replay is the device span
+``program.replay`` (events just before and after ``graph.replay()``,
+outside the graph) around the host span ``program.launch``; a capture
+is ``program.capture`` and counts in ``program.captures``, a replay in
+``program.replays``.  While the recorder is on, a call takes a key of
+its own (its key plus "traced"), captured with the body's device spans
+as event nodes in the graph; each replay records a copy of them, read
+at the key's next call.  With the recorder off nothing of this is in the
+graph.
 """
 
 from __future__ import annotations
@@ -59,6 +70,8 @@ from typing import Callable, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
+
+from ugrt_torch.api import profiler
 
 
 class Program:
@@ -76,6 +89,10 @@ class Program:
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs):
+        with profiler.span("program.call", request=True):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         bound = self._signature.bind(*args, **kwargs)
         bound.apply_defaults()
         statics = {n: bound.arguments[n] for n in self.static}
@@ -89,6 +106,8 @@ class Program:
         key = (tuple(statics.items()),
                tuple((n, t.shape, t.dtype, t.device)
                      for n, t in tensors.items()))
+        if profiler.recording():
+            key += ("traced",)
         entry = self._cache.get(key)
         if entry is None:
             entry = _Capture(self.fn, statics, tensors, self.counters,
@@ -119,6 +138,8 @@ class _Capture:
         self.counters = counters
         self.error_mode = error_mode
         self.graph = None
+        self.template = None      # the traced key's spans (api.profiler)
+        self.last = []            # their copies of the last replay
         self.capture_s = 0.0
         device = next(iter(example.values())).device
         with torch.no_grad():
@@ -133,35 +154,45 @@ class _Capture:
         return self.fn(**self.inputs, **self.statics)
 
     def _capture(self, device):
-        t0 = time.perf_counter()
-        with torch.cuda.device(device):
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                self._run()
-            torch.cuda.current_stream(device).wait_stream(side)
-            before = [c.launches for c in self.counters]
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode=self.error_mode):
-                self.outputs = self._run()
-            # The wrappers counted launches that they only recorded: each
-            # replay makes them.
-            self.credit = [c.launches - n
-                           for c, n in zip(self.counters, before)]
-            for c, n in zip(self.counters, before):
-                c.launches = n
-            torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
+        with profiler.span("program.capture"):
+            t0 = time.perf_counter()
+            with torch.cuda.device(device):
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    self._run()
+                torch.cuda.current_stream(device).wait_stream(side)
+                before = [c.launches for c in self.counters]
+                self.graph = torch.cuda.CUDAGraph()
+                with profiler.capturing() as template, torch.cuda.graph(
+                        self.graph, capture_error_mode=self.error_mode):
+                    self.outputs = self._run()
+                self.template = template
+                # The wrappers counted launches that they only recorded: each
+                # replay makes them.
+                self.credit = [c.launches - n
+                               for c, n in zip(self.counters, before)]
+                for c, n in zip(self.counters, before):
+                    c.launches = n
+                torch.cuda.synchronize(device)
+            self.capture_s = time.perf_counter() - t0
+        profiler.count("program.captures")
 
     def __call__(self, tensors):
         with torch.no_grad():
             for name, t in tensors.items():
                 self.inputs[name].copy_(t)
+        profiler.count("program.replays")
         if self.graph is None:
-            out = self._run()
+            with profiler.span("program.replay", device=True), \
+                    profiler.span("program.launch"):
+                out = self._run()
         else:
-            self.graph.replay()
+            profiler.read_replay(self.last)
+            with profiler.span("program.replay", device=True) as replay:
+                with profiler.span("program.launch"):
+                    self.graph.replay()
+            self.last = profiler.replayed(self.template, replay)
             out = self.outputs
             for c, n in zip(self.counters, self.credit):
                 c.launches += n

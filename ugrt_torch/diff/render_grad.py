@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.program import Program
 from ugrt_torch.grid import build as gbuild
@@ -100,7 +101,8 @@ def render_and_grad(vertices, materials, faces, mat_index, camcoords,
         # The backward on this thread, not on autograd's worker thread:
         # so every launch of a capture comes from the capturing thread
         # (core/program.py).
-        with torch.autograd.set_multithreading_enabled(False):
+        with torch.autograd.set_multithreading_enabled(False), \
+                profiler.span("step.backward", device=True):
             grad_v, grad_m = torch.autograd.grad(loss, (v, m))
     return dict(loss=loss.detach(), color=color.detach(),
                 grad_vertices=grad_v, grad_materials=grad_m,

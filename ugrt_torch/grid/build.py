@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.ragged import segment_ids_from_starts
 from ugrt_torch.grid import binning
@@ -151,6 +152,7 @@ def _finish(r, cfg: RenderConfig, capacity: int,
     return g
 
 
+@profiler.spanned("grid.perspective", device=True)
 def build_perspective_grid(vertices, faces, camcoords, *,
                            cfg: RenderConfig, capacity: int,
                            heavy_threshold: int | None = None) -> DeviceGrid:
@@ -163,6 +165,7 @@ def build_perspective_grid(vertices, faces, camcoords, *,
     return _finish(r, cfg, capacity, heavy_threshold)
 
 
+@profiler.spanned("grid.spherical", device=True)
 def build_spherical_grid(vertices, faces, camcoords, *,
                          cfg: RenderConfig, capacity: int,
                          x_max=None, y_max=None, window=None,

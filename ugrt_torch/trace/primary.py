@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.vecmath import cross, dot, normalize, transform_point
@@ -88,6 +89,7 @@ def untile(img_tiled, cfg: RenderConfig, tiles_x: int, tiles_y: int):
     return d.reshape(tiles_y * ty, tiles_x * tx, *trailing)
 
 
+@profiler.spanned("trace.primary", device=True)
 def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
                   cfg: RenderConfig, *, bx0: int = 0, n_bx: int | None = None,
                   backend: str | None = None):

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize, sqrt
 from ugrt_torch.dist import all_reduce
@@ -190,6 +191,7 @@ def light_window(primary, primary_eye, light_camcoords, cfg: RenderConfig,
     return apply_window_margin(x0, x1, y0, y1, margin)
 
 
+@profiler.spanned("trace.shadow", device=True)
 def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
                  primary, primary_eye, cfg: RenderConfig, *,
                  x_max=None, y_max=None, window=None,
