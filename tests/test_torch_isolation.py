@@ -46,6 +46,48 @@ CAMERAS = {
 }
 
 
+def _random_cameras(n, seed=20):
+    """n seeded cameras as (CameraSpec fields, fovy, aspect): eye and
+    look-at across the cathedral's box (0..30, 0..20, 0..10) and beyond,
+    ``up`` along each axis, negated or skewed, the near/far pairs
+    0.01/10, 0.1/100 and 1/1000, fovy 30-90 and aspects 1, 4/3 and 16/9;
+    every 16th view looks within 1e-3 rad of ``up`` or of its negation,
+    and every 16th other has its eye at the origin (each translation a
+    sum of signed zeros)."""
+    rng = np.random.default_rng(seed)
+    ups = [(0.0, 0.0, 1.0), (0.0, 1.0, 0.0), (1.0, 0.0, 0.0),
+           (0.0, 0.0, -1.0), (0.02, 1.0, 0.013), (0.3, -0.2, 0.9)]
+    clips = [(0.01, 10.0), (0.1, 100.0), (1.0, 1000.0)]
+    out = []
+    for i in range(n):
+        eye = rng.uniform((-15, -10, -5), (45, 30, 15)) * (i % 16 != 8)
+        up = np.asarray(ups[i % len(ups)])
+        if i % 16 == 0:
+            # Near-degenerate: the view direction is up (or -up) tilted by
+            # an angle of 1e-6 to 1e-3 rad, for each up in turn.
+            up = np.asarray(ups[i // 16 % len(ups)])
+            u = up / np.linalg.norm(up)
+            side = np.cross(u, rng.normal(size=3))
+            side /= np.linalg.norm(side)
+            angle = 10 ** rng.uniform(-6, -3)
+            d = np.cos(angle) * u + np.sin(angle) * side
+            look = eye + rng.choice((-1.0, 1.0)) * rng.uniform(1, 20) * d
+        else:
+            look = rng.uniform((-15, -10, -5), (45, 30, 15))
+        near, far = clips[i % len(clips)]
+        spec = dict(eye=tuple(map(float, eye)),
+                    look_at=tuple(map(float, look)),
+                    up=tuple(map(float, up)), near=near, far=far)
+        out.append((spec, float(rng.uniform(30, 90)),
+                    (1.0, 4 / 3, 16 / 9)[(i // 3) % 3]))
+    return out
+
+
+def _assert_bits_equal(a, b):
+    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
 def _chip_smoke_imports():
     """Every import statement of chip_smoke.py, as source lines."""
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
@@ -106,7 +148,8 @@ def _write_obj(path):
     "RenderConfig", "QuirkConfig", "pair_capacity", "camcoords",
     "cathedral", "cornell_box", "single_triangle", "obj_parser",
     "load_scene", "bridge", "aabb", "write_obj", "write_material_file",
-    "rotate_subrange", "read_ppm"])
+    "rotate_subrange", "read_ppm", "camcoords_random", "look_at_matrix",
+    "frustum_planes", "frustum_corners"])
 def test_copies_equal_ugrt(what, tmp_path):
     if what == "RenderConfig":
         a, b = config_j.RenderConfig(), config_t.RenderConfig()
@@ -134,6 +177,31 @@ def test_copies_equal_ugrt(what, tmp_path):
                 assert a.dtype == b.dtype == np.float32
                 np.testing.assert_array_equal(a.view(np.int32),
                                               b.view(np.int32))
+    elif what == "camcoords_random":
+        for spec, fovy, aspect in _random_cameras(1024):
+            _assert_bits_equal(
+                cam_j.camcoords_from_spec(cam_j.CameraSpec(**spec), fovy,
+                                          aspect),
+                cam_t.camcoords_from_spec(cam_t.CameraSpec(**spec), fovy,
+                                          aspect))
+    elif what in ("look_at_matrix", "frustum_planes", "frustum_corners"):
+        # Each stage of the camera on ugrt's own input to it, so that a
+        # mismatch names its stage.
+        for spec, fovy, aspect in _random_cameras(1024, seed=21):
+            mv = cam_j.look_at_matrix(spec["eye"], spec["look_at"],
+                                      spec["up"])
+            if what == "look_at_matrix":
+                _assert_bits_equal(mv, cam_t.look_at_matrix(
+                    spec["eye"], spec["look_at"], spec["up"]))
+                continue
+            mvp = cam_j.mvp_matrix(mv, cam_j.perspective_matrix(
+                fovy, aspect, spec["near"], spec["far"]))
+            planes = cam_j.frustum_planes(mvp)
+            if what == "frustum_planes":
+                _assert_bits_equal(planes, cam_t.frustum_planes(mvp))
+                continue
+            _assert_bits_equal(cam_j.frustum_corners(planes),
+                               cam_t.frustum_corners(planes))
     elif what in ("cathedral", "cornell_box", "single_triangle"):
         kw = {"cathedral": dict(num_faces_target=2000, seed=0),
               "cornell_box": dict(subdiv=2),
