@@ -1672,9 +1672,8 @@ def mesh_phase(scene, flagship, camera, light, kernels):
                 fail("phase 10a: a sharded replay credited no launch")
             nccl_profile(lambda: step(*sf, targets[0]),
                          label="phase 10a (replay)")
-            for prog in (*renders.values(), step):
-                prog.clear()
         finally:
+            dmesh.clear()
             dist.destroy_process_group()
     return launches
 
@@ -2747,6 +2746,9 @@ def dist_main(args):
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}}), flush=True)
     finally:
+        # train(use_mesh=True) keeps its step's graph, whose NCCL work
+        # must go before the group does (dist/mesh.py).
+        dmesh.clear()
         dist.destroy_process_group()
     return 0
 

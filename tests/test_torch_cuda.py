@@ -674,6 +674,7 @@ def test_sharded_step_nccl_world_one(card, tmp_path):
         loss, gv, gm, overflow = dmesh.sharded_train_step(mesh, **kw)(
             *frame, target)
     finally:
+        dmesh.clear()
         dist.destroy_process_group()
     ref = render_and_grad(*frame[:7], target, **kw)
     assert not bool(overflow)
@@ -728,12 +729,61 @@ def test_sharded_programs_replay_eager_nccl_world_one(card, tmp_path):
             assert float(got[2].abs().sum()) > 0
             losses.append(float(got[0]))
         assert render.cache_size() == step.cache_size() == 1
-        render.clear()
-        step.clear()
     finally:
+        dmesh.clear()
         dist.destroy_process_group()
     assert not torch.equal(images[0], images[1])
     assert losses[0] != losses[1]
+
+
+def test_second_sharded_job_captures_nothing(card, tmp_path):
+    """Two cards, an NCCL group of two ranks (tests/torch_dist_worker.py,
+    one process a card): a second train(use_mesh=True) job like the first
+    replays the kept step Program's graph.  On every rank the count of
+    program.captures after the second job equals the count after the
+    first (one), both jobs ran one Program of one key, and the second
+    job's losses and parameters equal the first's bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scene = procedural.cornell_box(subdiv=2)
+    rng = np.random.default_rng(3)
+    np.savez(tmp_path / "inputs.npz", **{
+        f"box/{k}": getattr(scene, k) for k in ("vertices", "materials",
+                                                "faces", "mat_index")},
+        **{"box/target": rng.uniform(0.0, 0.3, (128, 128, 3)).astype(
+            np.float32)})
+    job = dict(learning_rate=1e-2, steps=6)
+    task = dict(name="train_jobs", key="jobs", inputs="box",
+                cfg=dataclasses.asdict(SMALL), jobs=[job, job],
+                camera=dataclasses.asdict(CAMERA),
+                light=dataclasses.asdict(LIGHT))
+    (tmp_path / "spec.json").write_text(json.dumps(dict(
+        tasks=[task], backend="nccl", timeout_s=600)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "torch_dist_worker.py"),
+         str(tmp_path), str(r), "2"], cwd=str(tmp_path), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)[-4000:]
+    for r in range(2):
+        out = np.load(tmp_path / f"rank{r}.npz")
+        assert [int(out[f"jobs/{i}/captures"]) for i in (0, 1)] == [1, 1]
+        assert [int(out[f"jobs/{i}/keys"]) for i in (0, 1)] == [1, 1]
+        assert bool(out["jobs/same"])
+        for res in ("log", "vertices", "materials"):
+            a, b = out[f"jobs/0/{res}"], out[f"jobs/1/{res}"]
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                          err_msg=res)
+        assert len(out["jobs/0/log"]) == 6
 
 
 def test_build_packets_on_card_equals_cpu(card):

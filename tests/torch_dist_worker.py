@@ -1,13 +1,16 @@
-"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py.
+"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py
+and tests/test_torch_mesh_programs.py (or, with ``"backend": "nccl"`` in
+the spec, of an NCCL group on card ``cuda:<RANK>``, for
+tests/test_torch_cuda.py).
 
     python tests/torch_dist_worker.py DIR RANK WORLD_SIZE
 
 Joins the group through a FileStore in DIR (no TCP port), reads the
 tasks from DIR/spec.json and their arrays from DIR/inputs.npz, runs them
 through ``ugrt_torch.dist.mesh`` (its Programs, and for the program
-tasks their eager bodies beside them) and ``ugrt_torch.api.train`` on
-CPU tensors, and writes its results to DIR/rank<RANK>.npz.  It imports only
-torch, numpy and ugrt_torch (``ugrt_torch`` must be on PYTHONPATH), never
+tasks their eager bodies beside them) and ``ugrt_torch.api.train``, and
+writes its results to DIR/rank<RANK>.npz.  It imports only torch, numpy
+and ugrt_torch (``ugrt_torch`` must be on PYTHONPATH), never
 tests/conftest.py, which imports JAX, and holds torch at one thread.
 """
 
@@ -21,9 +24,10 @@ import torch
 import torch.distributed as dist
 
 from ugrt_torch import config
-from ugrt_torch.api import checkpoint
+from ugrt_torch.api import checkpoint, profiler
 from ugrt_torch.api import train as tmod
 from ugrt_torch.core.host_camera import CameraSpec
+from ugrt_torch.diff.render_grad import render_and_grad
 from ugrt_torch.dist import mesh as dmesh
 from ugrt_torch.scene.model import Scene
 
@@ -46,6 +50,9 @@ def run_task(task, arrays, mesh, out):
         return
     if task["name"] in PROGRAMS:
         program_runs(task, arrays, mesh, cfg, out)
+        return
+    if task["name"] in MESH_TASKS:
+        MESH_TASKS[task["name"]](task, arrays, mesh, cfg, out)
         return
     a = {k: torch.from_numpy(arrays[f"{task['inputs']}/{k}"])
          for k in (*FRAME_KEYS, "target") if f"{task['inputs']}/{k}" in arrays}
@@ -124,6 +131,102 @@ def train_runs(task, arrays, cfg, out):
         checkpoint.latest_step(task["train"]["checkpoint_dir"]))
 
 
+def kept_programs(task, arrays, mesh, cfg, out):
+    """dist.mesh's kept Programs: over two Meshes of the group, equal
+    statics give the same step and frame Program; another statics value,
+    or the other entry point, another Program; after ``clear()``, and
+    after ``render_and_grad.clear()``, a new one.  Writes the seven
+    checks in that order."""
+    kw = dict(cfg=cfg, capacity=task["capacity"], num_lights=1,
+              use_spot=True)
+    other = dmesh.make_mesh(device=mesh.device.type)
+    step = dmesh.sharded_train_step(mesh, **kw)
+    checks = [
+        step is dmesh.sharded_train_step(other, **kw),
+        dmesh.sharded_render(mesh, **kw) is dmesh.sharded_render(other,
+                                                                 **kw),
+        step is not dmesh.sharded_train_step(mesh, **dict(kw,
+                                                          use_spot=False)),
+        step is not dmesh.sharded_train_step(
+            mesh, **dict(kw, capacity=kw["capacity"] + 1)),
+        step is not dmesh.sharded_render(mesh, **kw)]
+    dmesh.clear()
+    again = dmesh.sharded_train_step(mesh, **kw)
+    checks.append(step is not again)
+    render_and_grad.clear()
+    checks.append(again is not dmesh.sharded_train_step(mesh, **kw))
+    dmesh.clear()
+    out[f"{task['key']}/checks"] = np.asarray(checks)
+
+
+def traced_steps(task, arrays, mesh, cfg, out):
+    """task["steps"] calls of the kept step Program with the recorder on:
+    the calls and device calls of ``mesh.allreduce`` and ``mesh.strip``,
+    the all-reduces inside a strip, and the counters."""
+    a = {k: torch.from_numpy(arrays[f"{task['inputs']}/{k}"]).to(mesh.device)
+         for k in (*FRAME_KEYS, "target")}
+    step = dmesh.sharded_train_step(mesh, cfg=cfg, capacity=task["capacity"],
+                                    num_lights=1, use_spot=True)
+    with profiler.tracing(mesh.device) as rec:
+        for _ in range(task["steps"]):
+            step(*(a[k] for k in (*FRAME_KEYS, "target")))
+    key = task["key"]
+    totals = rec.totals()
+    for name in ("mesh.allreduce", "mesh.strip"):
+        t = totals[name]
+        out[f"{key}/{name}/calls"] = np.asarray(t.calls)
+        out[f"{key}/{name}/device_calls"] = np.asarray(t.device_calls)
+    out[f"{key}/in_strip"] = np.asarray(sum(
+        s.name == "mesh.allreduce" and _inside(s, "mesh.strip")
+        for s in rec.spans))
+    for name in ("mesh.collectives", "mesh.allreduce_bytes"):
+        out[f"{key}/{name}"] = np.asarray(rec.counts[name])
+
+
+def _inside(span, name):
+    """Whether a span named ``name`` encloses ``span``."""
+    p = span.parent
+    while p is not None and p.name != name:
+        p = p.parent
+    return p is not None
+
+
+def train_jobs(task, arrays, mesh, cfg, out):
+    """The train(use_mesh=True) jobs of task["jobs"] (TrainConfig fields
+    each) one after another in this process, the recorder on: each job's
+    losses and parameters, and after each job the count of
+    ``program.captures`` and the kept step Program's keys (none kept
+    before the first); and whether every job ran the same kept
+    Program."""
+    dmesh.clear()
+    p = task["inputs"]
+    scene = Scene(**{k: arrays[f"{p}/{k}"] for k in SCENE_KEYS})
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=1, use_spot=True)
+    key, programs = task["key"], []
+    with profiler.tracing(mesh.device) as rec:
+        for i, job in enumerate(task["jobs"]):
+            verts, mats, log = tmod.train(
+                scene, [CameraSpec(**task["camera"])],
+                CameraSpec(**task["light"]), task["light"]["eye"],
+                [arrays[f"{p}/target"]], cfg,
+                tmod.TrainConfig(**job, use_mesh=True), verbose=False,
+                device=mesh.device.type)
+            programs.append(dmesh.sharded_train_step(mesh, **kw))
+            out[f"{key}/{i}/log"] = np.asarray(log)
+            out[f"{key}/{i}/vertices"] = verts.cpu().numpy()
+            out[f"{key}/{i}/materials"] = mats.cpu().numpy()
+            out[f"{key}/{i}/captures"] = np.asarray(
+                rec.counts.get("program.captures", 0))
+            out[f"{key}/{i}/keys"] = np.asarray(programs[-1].cache_size())
+    out[f"{key}/same"] = np.asarray(all(x is programs[0] for x in programs))
+    dmesh.clear()
+
+
+MESH_TASKS = {"kept_programs": kept_programs, "traced_steps": traced_steps,
+              "train_jobs": train_jobs}
+
+
 def psum_overlap(task, arrays, mesh, cfg, out):
     """micro.trace_psum_overlap.run on the scene of task["inputs"] with
     the script's Cornell camera and light; writes this rank's report."""
@@ -148,11 +251,15 @@ def main(argv):
     with open(os.path.join(d, "spec.json")) as fh:
         spec = json.load(fh)
     store = dist.FileStore(os.path.join(d, "store"), world)
+    backend = spec.get("backend", "gloo")
+    device = "cuda" if backend == "nccl" else "cpu"
+    os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group(
-        "gloo", store=store, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+        backend, store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout_s"]),
+        device_id=torch.device("cuda", rank) if device == "cuda" else None)
     try:
-        mesh = dmesh.make_mesh(device="cpu")
+        mesh = dmesh.make_mesh(device=device)
         assert (mesh.rank, mesh.world_size) == (rank, world)
         with np.load(os.path.join(d, "inputs.npz")) as f:
             arrays = dict(f)
@@ -161,6 +268,7 @@ def main(argv):
             run_task(task, arrays, mesh, out)
         np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
     finally:
+        dmesh.clear()
         dist.destroy_process_group()
 
 

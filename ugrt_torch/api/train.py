@@ -10,12 +10,13 @@ every frame of ``camera_specs`` replays the same CUDA graph (the frames
 share their shapes), and Adam runs eagerly after it, as ugrt's optax
 update runs outside its jit.  ``use_mesh`` shards each step's image over
 the ranks of the default process group (``dist.mesh.sharded_train_step``,
-a captured program too, its collectives inside the graph): every rank
-calls ``train()``, as under ``torchrun``, renders its strip of tile
-columns and takes the gradients summed over the group.  The checkpoint
-barrier and the step's one host read stay outside the program.  A step
-is the span ``train.step`` (``api.profiler``), Adam the device span
-``train.adam`` inside it.
+a captured program too, its collectives inside the graph, kept across
+calls as ``render_and_grad`` is, so that a later job replays the graph
+that the first one recorded): every rank calls ``train()``, as under
+``torchrun``, renders its strip of tile columns and takes the gradients
+summed over the group.  The checkpoint barrier and the step's one host
+read stay outside the program.  A step is the span ``train.step``
+(``api.profiler``), Adam the device span ``train.adam`` inside it.
 """
 
 from __future__ import annotations
@@ -72,7 +73,9 @@ def train(scene, camera_specs: Sequence[CameraSpec], light_spec: CameraSpec,
     renders its strip of each target (``device`` "cuda" means the card
     ``cuda:<LOCAL_RANK>``), and every rank returns the same losses and
     parameters.  Only rank 0 writes checkpoints; every rank resumes from
-    the latest.
+    the latest.  The sharded step's graph is kept for the next call:
+    call ``dist.mesh.clear()`` (or ``render_and_grad.clear()``) before
+    destroying the process group.
     """
     mesh = None
     if tcfg.use_mesh:

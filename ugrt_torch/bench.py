@@ -355,6 +355,7 @@ def process_group(n: int, device: torch.device):
         try:
             yield dmesh.make_mesh(device=device)
         finally:
+            dmesh.clear()
             dist.destroy_process_group()
 
 

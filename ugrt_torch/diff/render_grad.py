@@ -20,6 +20,8 @@ summation order.
 backward and the gathers' fixed-point sums replay as one CUDA graph.
 ``render_and_grad.fn`` is the eager step.  ``render_color`` stays a plain
 function: ``dist.mesh`` calls it per strip, between collectives.
+``render_and_grad.clear()`` also drops the sharded steps and frames that
+``dist.mesh`` keeps (``_StepProgram``).
 """
 
 from __future__ import annotations
@@ -78,8 +80,23 @@ def render_color(vertices, materials, faces, mat_index, camcoords,
             grid.overflow | light_overflow)
 
 
+class _StepProgram(Program):
+    """The step's Program, whose ``clear()`` also clears ``dist.mesh``'s
+    kept Programs, the step's sharded forms.  Their graphs hold NCCL
+    work, and they must go before the process group does: with them
+    alive, ``destroy_process_group`` hung on 4 H100s (torch 2.11).  A
+    caller that frees only this step's graphs before it destroys its
+    group (the benchmark's launcher does) frees those too; one that
+    calls ``dist.mesh.clear()`` itself needs none of this."""
+
+    def clear(self) -> None:
+        super().clear()
+        from ugrt_torch.dist import mesh
+        mesh.clear()
+
+
 @functools.partial(
-    Program, static=("cfg", "capacity", "num_lights", "use_spot"),
+    _StepProgram, static=("cfg", "capacity", "num_lights", "use_spot"),
     counters=(primary_sweep, heavy_primary_sweep, shadow_sweep,
               face_corner_sum, segment_sum))
 def render_and_grad(vertices, materials, faces, mat_index, camcoords,

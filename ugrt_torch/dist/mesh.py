@@ -23,6 +23,13 @@ sharded ``out_specs`` -> ``all_gather_into_tensor``.  The collectives
 run on the tensors' own device (NCCL on the card, gloo on the CPU) and
 order themselves against the current stream: no host sync is added.
 
+Spans (``api.profiler``): each all-reduce is the device span
+``mesh.allreduce`` and counts in ``mesh.collectives`` and
+``mesh.allreduce_bytes`` (``dist.all_reduce``); the frame's gather is
+``mesh.allgather`` (counted in ``mesh.collectives`` too); the step's own
+strip, ``render_color`` and its backward before the final sums, is
+``mesh.strip``.  Inside a replayed graph each is credited per replay.
+
 ``sharded_render`` and ``sharded_train_step`` return ``core.program``
 Programs, as ugrt's return one jitted ``shard_map`` program each
 (mesh.py:130, :208): on the card each rank records its strip, the
@@ -31,6 +38,15 @@ shape, and replays it; ``.fn`` is the eager body.  The capture runs in
 ``thread_local`` error mode: NCCL's watchdog thread may query its events
 while a capture runs, which the default global mode would turn into a
 failed capture.  On the CPU (gloo) a Program calls its body eagerly.
+
+The Programs are kept, as ``render_and_grad`` is one module-level
+Program: one per process group, rank, world size, device and static
+arguments, so that a second ``train(use_mesh=True)`` job replays the
+graphs the first one recorded.  ``clear()`` (and
+``render_and_grad.clear()``) drops them all at once; call it before
+``destroy_process_group``, since a graph that holds NCCL work must go
+before its communicator (the destroy hung with such graphs alive, on 4
+H100s with torch 2.11).
 
 The run is SPMD: every rank of the group calls the same functions with
 the same arguments (as under ``torchrun``).  That holds the programs
@@ -52,6 +68,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.program import Program
 from ugrt_torch.diff.render_grad import render_color
@@ -113,45 +130,74 @@ def _strip_width(cfg: RenderConfig, world_size: int) -> int:
     return cfg.grid_x // world_size
 
 
-def _program(body) -> Program:
-    """``body`` (a closure over the mesh: tensors only) as a Program."""
-    return Program(body, static=(), counters=COUNTERS,
-                   capture_error_mode="thread_local")
+# The kept Programs, {(group, body maker, rank, world size, device,
+# statics): Program}.
+_kept: dict = {}
+
+
+def _kept_program(make, mesh: Mesh, cfg: RenderConfig, capacity: int,
+                  num_lights: int, use_spot: bool) -> Program:
+    """The Program of ``make``'s body for ``mesh`` and these statics, made
+    at the first call of its key and returned again at every later one."""
+    key = (mesh.group, make, mesh.rank, mesh.world_size, mesh.device, cfg,
+           capacity, num_lights, use_spot)
+    if key not in _kept:
+        body = make(mesh.group, mesh.rank, mesh.world_size,
+                    _strip_width(cfg, mesh.world_size),
+                    dict(cfg=cfg, capacity=capacity, num_lights=num_lights,
+                         use_spot=use_spot))
+        _kept[key] = Program(body, static=(), counters=COUNTERS,
+                             capture_error_mode="thread_local")
+    return _kept[key]
+
+
+def clear() -> None:
+    """Drop every kept Program and its recordings (and the device memory
+    they hold), as ``render_and_grad.clear()`` does for the one-card
+    step."""
+    for program in _kept.values():
+        program.clear()
+    _kept.clear()
 
 
 def sharded_render(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                    num_lights: int, use_spot: bool) -> Program:
-    """A Program (vertices, materials, faces, mat_index, camcoords,
+    """The kept Program (vertices, materials, faces, mat_index, camcoords,
     light_camcoords, light_position) -> (image f32 [H, W, 3], overflow
     0-d bool) that renders this rank's strip and gathers the whole image
     to every rank.  ``overflow`` is any strip's capacity flag: a sharded
     image surfaces clipped geometry as the single-device one does."""
-    n_bx = _strip_width(cfg, mesh.world_size)
-    bx0 = mesh.rank * n_bx
+    return _kept_program(_render_body, mesh, cfg, capacity, num_lights,
+                         use_spot)
+
+
+def _render_body(group, rank, world_size, n_bx, kw):
+    bx0 = rank * n_bx
 
     def render(vertices, materials, faces, mat_index, camcoords,
                light_camcoords, light_position):
         color, overflow = render_color(
             vertices, materials, faces, mat_index, camcoords,
-            light_camcoords, light_position, cfg=cfg, capacity=capacity,
-            num_lights=num_lights, use_spot=use_spot, bx0=bx0, n_bx=n_bx,
-            group=mesh.group)
+            light_camcoords, light_position, **kw, bx0=bx0, n_bx=n_bx,
+            group=group)
         H, w = color.shape[:2]
         # Strips stacked along rows, [world * H, w, 3], then side by side.
-        out = torch.empty((mesh.world_size * H, w, 3), dtype=color.dtype,
+        out = torch.empty((world_size * H, w, 3), dtype=color.dtype,
                           device=color.device)
-        dist.all_gather_into_tensor(out, color.contiguous(),
-                                    group=mesh.group)
-        image = out.reshape(mesh.world_size, H, w, 3).permute(
-            1, 0, 2, 3).reshape(H, mesh.world_size * w, 3)
-        return image, _any(overflow, mesh.group)
+        profiler.count("mesh.collectives")
+        with profiler.span("mesh.allgather", device=True):
+            dist.all_gather_into_tensor(out, color.contiguous(),
+                                        group=group)
+        image = out.reshape(world_size, H, w, 3).permute(
+            1, 0, 2, 3).reshape(H, world_size * w, 3)
+        return image, _any(overflow, group)
 
-    return _program(render)
+    return render
 
 
 def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
                        num_lights: int, use_spot: bool) -> Program:
-    """A Program (vertices, materials, faces, mat_index, camcoords,
+    """The kept Program (vertices, materials, faces, mat_index, camcoords,
     light_camcoords, light_position, target) -> (loss, grad_vertices,
     grad_materials, overflow), each the same on every rank.
 
@@ -160,21 +206,24 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
     3 * image_size, summed over the ranks (ugrt mesh.py:181-188), as are
     the strips' gradients.  ``overflow`` is any strip's capacity flag;
     the gradients cannot be trusted when it is set."""
-    n_bx = _strip_width(cfg, mesh.world_size)
-    bx0 = mesh.rank * n_bx
+    return _kept_program(_step_body, mesh, cfg, capacity, num_lights,
+                         use_spot)
+
+
+def _step_body(group, rank, world_size, n_bx, kw):
+    bx0 = rank * n_bx
+    cfg = kw["cfg"]
     cols = slice(bx0 * cfg.tile_x, (bx0 + n_bx) * cfg.tile_x)
     SUM = dist.ReduceOp.SUM
 
     def step(vertices, materials, faces, mat_index, camcoords,
              light_camcoords, light_position, target):
-        with torch.enable_grad():
+        with torch.enable_grad(), profiler.span("mesh.strip", device=True):
             v = vertices.detach().requires_grad_(True)
             m = materials.detach().requires_grad_(True)
             color, overflow = render_color(
                 v, m, faces, mat_index, camcoords, light_camcoords,
-                light_position, cfg=cfg, capacity=capacity,
-                num_lights=num_lights, use_spot=use_spot, bx0=bx0,
-                n_bx=n_bx, group=mesh.group)
+                light_position, **kw, bx0=bx0, n_bx=n_bx, group=group)
             # Divide by a device tensor: on CUDA, a Python divisor turns
             # into a multiply by its reciprocal.  A fill, not a copy from
             # the host, which a capture refuses.
@@ -184,9 +233,9 @@ def sharded_train_step(mesh: Mesh, *, cfg: RenderConfig, capacity: int,
             # On this thread, as render_and_grad's (core/program.py).
             with torch.autograd.set_multithreading_enabled(False):
                 grad_v, grad_m = torch.autograd.grad(loss, (v, m))
-        return (all_reduce(loss.detach(), SUM, mesh.group),
-                all_reduce(grad_v, SUM, mesh.group),
-                all_reduce(grad_m, SUM, mesh.group),
-                _any(overflow, mesh.group))
+        return (all_reduce(loss.detach(), SUM, group),
+                all_reduce(grad_v, SUM, group),
+                all_reduce(grad_m, SUM, group),
+                _any(overflow, group))
 
-    return _program(step)
+    return step

@@ -198,6 +198,7 @@ def main(argv=None):
                   "device:", card_line(), flush=True)
         run(mesh, w.cfg, w.scene, args.out)
     finally:
+        dmesh.clear()
         dist.destroy_process_group()
     return 0
 
