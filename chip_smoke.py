@@ -31,12 +31,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
     tests, t-free skips, divisions, hints tried and hit, rays its second
     pass walked), and the bound: the larger of the needed flops at the
     card's published f32 peak and the bytes at its memory rate.
+3b. B1 (kernels/shadow_bin), the shadow rays' binning, sort, rows and
+    unpermute, against its plain version on the flagship frame's
+    1,048,576 rays (bench's camera, eager primary): every key, the
+    permutation, the rows and the block bounds bitwise in reference,
+    extent and windowed mode (with and without the window launch's
+    angles), the window's bounds and angles, the unpermute of random
+    flags; the same on a ragged 1000 x 999 slice with NaN and inf t.
+    Prints each launch's ms as a replayed graph beside the plain
+    chain's and the bound (the rays' t and dir read once, the rows,
+    keys and ids written once, at the card's memory rate).
  4. Renders the Cornell box at 128^2 on the card and on the CPU (where
     the sweeps run their plain versions); at most 0.1% of pixels of the
     u8 image and of the shadow mask may differ.  The CPU frame is held
     to the numpy oracle by the tests (tests/test_torch_render.py).
  5. Flagship frames through Renderer.render on the card, windowed then
     reference light grid, 4 frames each; every kernel must have launched
+    (B1's wrappers once a frame, the window's in windowed mode only)
     and no grid capacity may overflow.  Prints per-frame ms, then the
     device-busy share and top kernels of one more frame per mode under
     torch.profiler.  Renderer.render, render_and_grad and train()'s step
@@ -655,6 +666,110 @@ def kernel_phase(scene, flagship, camera, light):
                              plain_ms=plain_ms, max_abs_err=err,
                              bound_ms=b_ms, bound_by=b_by, needed_tests=need,
                              walked_tests=walked)
+    return results
+
+
+def same_bits(a, b):
+    """Equal shape and dtype, and equal values, NaN where the other is."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def bin_phase(scene, flagship, camera, light):
+    """Phase 3b: B1 against its plain version on the flagship frame's
+    rays, and its ms beside the plain chain's.  Returns {site: record}."""
+    import torch
+
+    from ugrt_torch import bridge
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.kernels import shadow_bin as b1
+    from ugrt_torch.trace import primary as tprimary
+    from ugrt_torch.trace import shadow as tshadow
+
+    dev = torch.device("cuda")
+    x = bridge.scene_to_torch(scene, dev)
+    v, f = x["vertices"], x["faces"]
+    cfg = flagship
+    cc = bridge.camcoords_to_torch(camera, cfg.fovy_deg, 1.0, dev)
+    lcc = bridge.camcoords_to_torch(light, cfg.fovy_deg, 1.0, dev)
+    eye = cc[0:3]
+    grid = gbuild.build_perspective_grid(
+        v, f, cc, cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces))
+    full = tprimary.trace_primary(v, f, cc, grid, cfg)
+    full = {k: full[k] for k in ("t", "ray_dir")}
+    odd = {k: full[k][:1000, :999].contiguous() for k in full}
+    odd["t"].view(-1)[::97] = float("nan")
+    odd["t"].view(-1)[5::211] = float("inf")
+    results = {}
+    for label, prim in (("flagship", full), ("ragged 1000x999", odd)):
+        n = prim["t"].numel()
+        (bk, ak), (bp, ap) = (fn(prim, eye, lcc) for fn in (
+            b1.window_angles, b1.window_angles_plain))
+        bad = [name for name, g, w in (
+            ("bounds", torch.stack(bk), torch.stack(bp)), ("sx", ak[0], ap[0]),
+            ("sy", ak[1], ap[1])) if not same_bits(g, w)]
+        window = tshadow.apply_window_margin(*bk)
+        ext = tshadow.light_extents(prim, eye, lcc, cfg)
+        cases = {"reference": {}, "extent": dict(x_max=ext[0], y_max=ext[1]),
+                 "windowed": dict(window=window),
+                 "windowed, angles": dict(window=window, angles=ak)}
+        for mode, kw in cases.items():
+            got = b1.shadow_rays(prim, eye, lcc, cfg, **kw)
+            want = b1.shadow_rays_plain(prim, eye, lcc, cfg, **kw)
+            bad += [f"{mode} {name}" for name, g, w in zip(
+                got._fields, got, want) if not same_bits(g, w)]
+            flags = torch.randint(
+                0, 2, got.first_cell.shape + (128,), dtype=torch.int32,
+                generator=torch.Generator().manual_seed(5)).to(dev)
+            if not same_bits(b1.unpermute(flags, got.perm),
+                             b1.unpermute_plain(flags, want.perm)):
+                bad.append(f"{mode} unpermute")
+            cells = int((got.scells[:n] < cfg.cell_sentinel).sum())
+            distinct = int(torch.unique(got.scells[:n]).numel())
+            record = dict(rays=n, in_grid=cells, distinct_cells=distinct)
+            if label == "flagship":
+                nb = got.first_cell.numel()
+                rays_ms = graph_ms(lambda: b1.shadow_rays(
+                    prim, eye, lcc, cfg, **kw), 20)
+                plain_ms = graph_ms(lambda: b1.shadow_rays_plain(
+                    prim, eye, lcc, cfg, **kw), 20)
+                # t and dir (or the angles) in, rows, keys and ids out.
+                nbyte = (nbytes(prim["t"], prim["ray_dir"])
+                         + nb * 128 * (32 + 4) + 4 * n
+                         + (8 * n if "angles" in kw else 0))
+                b_ms, b_by = bound(0, nbyte)
+                up_ms = graph_ms(lambda: b1.unpermute(flags, got.perm), 20)
+                up_plain = graph_ms(lambda: b1.unpermute_plain(
+                    flags, want.perm), 20)
+                record.update(ms=rays_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, unpermute_ms=up_ms,
+                              unpermute_plain_ms=up_plain)
+                say(f"phase 3b: B1 {mode}: {n} rays, {cells} in the grid, "
+                    f"{distinct} distinct cells: shadow_rays {rays_ms:.4f} ms "
+                    f"(replayed graph), plain chain {plain_ms:.4f} ms; "
+                    f"{nbyte} bytes: bound {b_ms:.5f} ms by {b_by} "
+                    f"({100 * b_ms / rays_ms:.1f}%); unpermute {up_ms:.4f} "
+                    f"ms, plain {up_plain:.4f} ms")
+            results[f"{label}: {mode}"] = record
+        if label == "flagship":
+            w_ms = graph_ms(lambda: b1.window_angles(prim, eye, lcc), 20)
+            w_plain = graph_ms(lambda: b1.window_angles_plain(
+                prim, eye, lcc), 20)
+            b_ms, b_by = bound(0, nbytes(prim["t"], prim["ray_dir"])
+                               + 8 * prim["t"].numel())
+            say(f"phase 3b: B1 window_angles {w_ms:.4f} ms, plain "
+                f"{w_plain:.4f} ms; bound {b_ms:.5f} ms by {b_by}")
+            results[f"{label}: window_angles"] = dict(
+                ms=w_ms, plain_ms=w_plain, bound_ms=b_ms, bound_by=b_by)
+        say(f"phase 3b: {label} ({n} rays): {len(bad)} fields differ "
+            f"from the plain version {bad}")
+        if bad:
+            fail(f"phase 3b: B1 disagrees with its plain version: {bad}")
     return results
 
 
@@ -2787,6 +2902,7 @@ def main(argv=None):
     from ugrt_torch.kernels import _build
     from ugrt_torch.kernels import heavy_primary_sweep as k2
     from ugrt_torch.kernels import primary_sweep as k1
+    from ugrt_torch.kernels import shadow_bin as b1
     from ugrt_torch.kernels import shadow_sweep as k3
     from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
     from ugrt_torch.kernels.uniform_dda import uniform_dda
@@ -2825,6 +2941,7 @@ def main(argv=None):
 
     # Phase 3: every kernel against its plain version.
     results = kernel_phase(scene, flagship, camera, light)
+    bins = bin_phase(scene, flagship, camera, light)
 
     # Phase 4: the small frame on the card against the port on the CPU.
     small = dataclasses.replace(flagship, screen_width=128,
@@ -2847,10 +2964,16 @@ def main(argv=None):
         fail("phase 4: the card's frame disagrees with the CPU's")
 
     # Phase 5: the main path, flagship frames.
+    b1_wrappers = {"shadow_rays": b1.shadow_rays,
+                   "unpermute": b1.unpermute,
+                   "window_angles": b1.window_angles}
     for k in (k1.primary_sweep, k2.heavy_primary_sweep, k3.shadow_sweep):
         k.launches = 0
     frame_ms = {}
+    b1_launches = {}
     for mode in ("windowed", "reference"):
+        for w in b1_wrappers.values():
+            w.launches = 0
         cfg = dataclasses.replace(flagship, light_grid_mode=mode)
         r = Renderer(scene, cfg, device="cuda")
         times = []
@@ -2880,6 +3003,7 @@ def main(argv=None):
                     or not torch.isfinite(out["color"]).all() or hit < 0.5):
                 fail(f"phase 5: {mode}: malformed frame")
         frame_ms[mode] = times
+        b1_launches[mode] = {n: w.launches for n, w in b1_wrappers.items()}
         del r
     launches = {"primary_sweep": k1.primary_sweep.launches,
                 "heavy_primary_sweep": k2.heavy_primary_sweep.launches,
@@ -2889,6 +3013,15 @@ def main(argv=None):
                     frame_ms.items()))
     if min(launches.values()) <= 0:
         fail("phase 5: a kernel of the path was never launched")
+    # One light: B1's wrappers as often as each other (the window's in
+    # windowed mode only), credited per replay of the frame's graph.
+    say(f"phase 5: B1 launches {b1_launches}")
+    for mode, got in b1_launches.items():
+        n = got["shadow_rays"]
+        if (n < FRAMES or got["unpermute"] != n
+                or got["window_angles"] != (n if mode == "windowed" else 0)):
+            fail(f"phase 5: {mode}: B1's launches are not one a light and "
+                 f"frame")
     profile_frames(scene, flagship, camera, light, lp)
 
     # Phase 6: the differentiable step (and G1 alone, 6g); phase 7: the
@@ -3025,6 +3158,19 @@ def main(argv=None):
             "library": "index_add_ of the int64 fixed-point values (and its "
                        "zero fill)",
             "site": r})
+    kernels.append({
+        "name": "shadow_rays", "route": "cuda",
+        "source": "ugrt_torch/csrc/shadow_bin.cu",
+        "replaces": "no Pallas kernel: the XLA ops around ugrt's shadow "
+                    "sweep (ugrt/trace/shadow.py: light_window, the ray "
+                    "binning, the payload sort, the rows, _unpermute)",
+        "launches": sum(m["shadow_rays"] for m in b1_launches.values()),
+        "library_ms": None,
+        "library_none": "no single PyTorch call bins rays by light cell, "
+                        "sorts them stably and lays out their rows",
+        **{k: bins["flagship: reference"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "sites": bins})
     kernels += probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1177,3 +1177,175 @@ def test_face_gathers_backward_launch_g1_on_card(card):
                 assert not any("indexFunc" in n for n in names), names
     for g in grads[1:]:
         assert torch.equal(g.view(torch.int32), grads[0].view(torch.int32))
+
+
+# B1 (kernels/shadow_bin) on the flagship frame: bench's camera and
+# light over the 75k-face procedural cathedral at 1024^2, 128x128 grid.
+FLAGSHIP_CAMERA = CameraSpec(eye=(3.0, 15.0, 5.0), look_at=(13.0, 13.0, 3.0),
+                             up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+FLAGSHIP_LIGHT = CameraSpec(eye=(14.0, 13.0, 8.0), look_at=(14.0, 13.0, 0.0),
+                            up=(0.0, 1.0, 0.0), near=0.1, far=100.0)
+B1_MODES = ["reference", "extent", "windowed", "windowed-angles"]
+
+
+@pytest.fixture(scope="module")
+def flagship_frame():
+    """(scene tensors, eye, light camcoords, primary, cfg) of the flagship
+    frame on the card, traced once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from ugrt_torch import bridge
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.trace import primary as tprimary
+
+    cfg = RenderConfig()
+    dev = torch.device("cuda")
+    scene = procedural.cathedral(num_faces_target=75000)
+    t = bridge.scene_to_torch(scene, dev)
+    cc = bridge.camcoords_to_torch(FLAGSHIP_CAMERA, cfg.fovy_deg, 1.0, dev)
+    lcc = bridge.camcoords_to_torch(FLAGSHIP_LIGHT, cfg.fovy_deg, 1.0, dev)
+    grid = gbuild.build_perspective_grid(
+        t["vertices"], t["faces"], cc, cfg=cfg,
+        capacity=cfg.pair_capacity(scene.num_faces))
+    prim = tprimary.trace_primary(t["vertices"], t["faces"], cc, grid, cfg)
+    return t, cc[0:3], lcc, {k: prim[k] for k in ("t", "ray_dir")}, cfg
+
+
+def _b1_kwargs(mode, prim, eye, lcc, cfg):
+    from ugrt_torch.kernels import shadow_bin as b1
+    from ugrt_torch.trace import shadow as tshadow
+
+    if mode == "reference":
+        return {}
+    if mode == "extent":
+        x, y = tshadow.light_extents(prim, eye, lcc, cfg)
+        return dict(x_max=x, y_max=y)
+    bounds, angles = b1.window_angles(prim, eye, lcc)
+    kw = dict(window=tshadow.apply_window_margin(*bounds))
+    if mode == "windowed-angles":
+        kw["angles"] = angles
+    return kw
+
+
+def _b1_equal(got, want):
+    for name, g, w in zip(got._fields, got, want):
+        _bitwise(g, w, name)
+
+
+@pytest.mark.parametrize("mode", B1_MODES)
+def test_shadow_rays_match_plain_on_card(card, flagship_frame, mode):
+    """B1 on the flagship frame's 1,048,576 rays: every key, the
+    permutation, the rows and the block bounds bitwise its plain
+    version (torch.sort's stable permutation is unique), and its
+    unpermute of random flags bitwise the plain scatter."""
+    from ugrt_torch.kernels import shadow_bin as b1
+
+    _, eye, lcc, prim, cfg = flagship_frame
+    kw = _b1_kwargs(mode, prim, eye, lcc, cfg)
+    before = b1.shadow_rays.launches
+    got = b1.shadow_rays(prim, eye, lcc, cfg, **kw)
+    assert b1.shadow_rays.launches == before + 1
+    want = b1.shadow_rays_plain(prim, eye, lcc, cfg, **kw)
+    _b1_equal(got, want)
+    n = prim["t"].numel()
+    assert got.perm.shape == (n,) == (1 << 20,)
+    assert int((got.scells < cfg.cell_sentinel).sum()) > n // 2
+    # Drawn on the CPU: after the captures that earlier tests of the file
+    # make fail on purpose, the card's default generator raised "Offset
+    # increment outside graph capture" in a run of the whole file.
+    flags = torch.randint(0, 2, (n // 128, 128), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(5)).to(card)
+    _bitwise(b1.unpermute(flags, got.perm), b1.unpermute_plain(flags,
+                                                               want.perm),
+             "unpermute")
+
+
+def test_window_angles_match_plain_on_card(card, flagship_frame):
+    """B1's window launch: every ray's signed angles and the four bounds
+    bitwise the plain chain's, NaN where it is."""
+    from ugrt_torch.kernels import shadow_bin as b1
+
+    _, eye, lcc, prim, _ = flagship_frame
+    (bk, ak), (bp, ap) = (fn(prim, eye, lcc) for fn in (
+        b1.window_angles, b1.window_angles_plain))
+    for g, w in zip(ak, ap):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        _bitwise(g[ok], w[ok], "angles")
+    _bitwise(torch.stack(bk), torch.stack(bp), "bounds")
+
+
+@pytest.mark.parametrize("mode", B1_MODES)
+def test_shadow_rays_edges_on_card(card, mode):
+    """B1 on a ragged ray count (1000 x 999 rays, not a multiple of
+    128) with NaN and inf t, and on a strip's rays (dist.mesh's columns
+    of the Cornell frame): bitwise its plain version."""
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.kernels import shadow_bin as b1
+    from ugrt_torch.trace import primary as tprimary
+
+    scene = procedural.cornell_box(subdiv=2)
+    v, _, f, _, cc, lcc, _ = _frame_tensors(scene, SMALL, card)
+    grid = gbuild.build_perspective_grid(
+        v, f, cc, cfg=SMALL, capacity=SMALL.pair_capacity(scene.num_faces))
+    strip = tprimary.trace_primary(v, f, cc, grid, SMALL, bx0=5, n_bx=3)
+    gen = torch.Generator().manual_seed(7)
+    t = torch.rand((1000, 999), generator=gen) * 3
+    t.view(-1)[::97] = float("nan")
+    t.view(-1)[5::211] = float("inf")
+    d = torch.nn.functional.normalize(
+        torch.randn((1000, 999, 3), generator=gen), dim=-1)
+    ragged = dict(t=t.to(card), ray_dir=d.to(card))
+    for prim in (ragged, {k: strip[k].contiguous()
+                          for k in ("t", "ray_dir")}):
+        kw = _b1_kwargs(mode, prim, cc[0:3], lcc[0], SMALL)
+        got = b1.shadow_rays(prim, cc[0:3], lcc[0], SMALL, **kw)
+        _b1_equal(got, b1.shadow_rays_plain(prim, cc[0:3], lcc[0], SMALL,
+                                            **kw))
+
+
+@pytest.mark.parametrize("mode", ["reference", "windowed"])
+def test_trace_shadow_kernel_equals_plain_on_card(card, flagship_frame,
+                                                  mode):
+    """trace_shadow on the flagship frame: backend="kernel" (B1 and K3)
+    bitwise backend="plain" (their plain versions)."""
+    from ugrt_torch.grid import build as gbuild
+    from ugrt_torch.trace import shadow as tshadow
+
+    t, eye, lcc, prim, cfg = flagship_frame
+    cfg = dataclasses.replace(cfg, light_grid_mode=mode)
+    kw = _b1_kwargs(mode, prim, eye, lcc, cfg)
+    lgrid = gbuild.build_spherical_grid(
+        t["vertices"], t["faces"], lcc, cfg=cfg,
+        capacity=cfg.pair_capacity(t["faces"].shape[0]), **kw)
+    got, want = (tshadow.trace_shadow(
+        t["vertices"], t["faces"], lcc, lgrid, prim, eye, cfg,
+        backend=backend, **kw) for backend in ("kernel", "plain"))
+    assert int(want.sum()) > 1000
+    _bitwise(got, want, "shadowed")
+
+
+@pytest.mark.parametrize("mode", ["windowed", "reference"])
+def test_replayed_frame_credits_b1_once_per_light(card, mode):
+    """A replayed frame credits each of B1's wrappers once a light (the
+    window's in windowed mode only), as K3's are credited."""
+    from ugrt_torch import bridge
+    from ugrt_torch.api.renderer import render_frame_device
+    from ugrt_torch.kernels import shadow_bin as b1
+
+    scene = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(SMALL, light_grid_mode=mode)
+    v, m, f, mi, cc, _, lp = _frame_tensors(scene, cfg, card)
+    lcc = torch.stack([bridge.camcoords_to_torch(s, cfg.fovy_deg, 1.0, card)
+                       for s in (LIGHT, SECOND_LIGHT)])
+    kw = dict(cfg=cfg, capacity=cfg.pair_capacity(scene.num_faces),
+              num_lights=2, use_spot=False)
+    args = (v, f, mi, m, cc, lcc, lp)
+    render_frame_device(*args, **kw)           # warm-up and capture
+    wrappers = (b1.shadow_rays, b1.unpermute, b1.window_angles)
+    before = [w.launches for w in wrappers]
+    for _ in range(3):
+        render_frame_device(*args, **kw)
+    got = [w.launches - n for w, n in zip(wrappers, before)]
+    assert got == [6, 6, 6 if mode == "windowed" else 0]

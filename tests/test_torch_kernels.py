@@ -462,8 +462,8 @@ def test_shadow_sweep_stats_needs_the_card():
 
 
 def test_build_keeps_the_probes_apart():
-    """The sweeps K1-K3 with the DDA D1 and the segment sum G1, and the
-    probes S1-S3, build as two libraries: each library's entry points are
+    """The sweeps K1-K3 with the DDA D1, the segment sum G1 and the
+    shadow rays' B1, and the probes S1-S3, build as two libraries: each library's entry points are
     defined in its own sources, the error string in the source both
     link, and each library's key covers its sources and the local headers
     they include, and nothing else."""
@@ -482,7 +482,8 @@ def test_build_keeps_the_probes_apart():
             for lib in _build.LIBRARIES}
     assert srcs["kernels"] == {"primary_sweep.cu", "heavy_primary_sweep.cu",
                                "shadow_sweep.cu", "uniform_dda.cu",
-                               "segment_sum.cu", "cuda_error.cu"}
+                               "segment_sum.cu", "shadow_bin.cu",
+                               "cuda_error.cu"}
     assert srcs["kernels"] & srcs["probes"] == {"cuda_error.cu"}
     every = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
     assert srcs["kernels"] | srcs["probes"] == every
@@ -492,3 +493,32 @@ def test_build_keeps_the_probes_apart():
     paths = {_build.library_path(lib) for lib in _build.LIBRARIES}
     assert len(paths) == 2 and all(p.parent == _build.BUILD_DIR
                                    for p in paths)
+
+
+def _entry_points():
+    from ugrt_torch.kernels import _build
+
+    return [(lib, name) for lib, sigs in _build.SIGNATURES.items()
+            for name in sigs]
+
+
+@pytest.mark.parametrize("lib,name", _entry_points(),
+                         ids=[n for _, n in _entry_points()])
+def test_entry_point_arguments_match_the_source(lib, name):
+    """Each entry point's ctypes argtypes have one entry per parameter of
+    its extern "C" definition, pointers for pointers and the stream
+    last: ctypes would pass a missing or surplus argument unchecked."""
+    import ctypes
+    import re
+
+    from ugrt_torch.kernels import _build
+
+    text = "".join(p.read_text() for p in _build.sources(lib))
+    params = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)',
+                       text).group(1)
+    params = [p.strip() for p in params.split(",")]
+    sig = _build.SIGNATURES[lib][name]
+    assert len(sig) == len(params)
+    for p, t in zip(params, sig):
+        assert ("*" in p) == (t is ctypes.c_void_p), (p, t)
+    assert params[-1].endswith("stream")

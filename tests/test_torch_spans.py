@@ -372,3 +372,57 @@ def test_traced_frame_stages_fall_inside_the_replay_on_the_card():
         assert p.parent.name == "program.call"
         assert p.d1 - p.d0 > 0
     assert rec.counts.get("program.unread_replays", 0) == 0
+
+
+@pytest.mark.parametrize("mode", ["reference", "windowed"])
+def test_shadow_rays_span_nests_in_trace_shadow(mode):
+    """B1's span ``shadow.rays`` opens once a light and frame, inside
+    ``trace.shadow`` and in the frame's request."""
+    sc = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(TINY, light_grid_mode=mode)
+    r = rapi.Renderer(sc, cfg, device="cpu")
+    rapi.render_frame_device.clear()
+    try:
+        with profiler.tracing("cpu") as rec:
+            for _ in range(2):
+                r.render(CAMERA, [LIGHT, CAMERA], LIGHT.eye)
+    finally:
+        rapi.render_frame_device.clear()
+    spans = _by_name(rec)["shadow.rays"]
+    assert len(spans) == 4
+    for s in spans:
+        assert s.parent.name == "trace.shadow" and s.rid == s.parent.rid
+        assert s.t1 >= s.t0
+
+
+@pytest.mark.cuda
+def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
+    """On the card, each replay of a traced frame credits the counters
+    ``b1.shadow_rays`` and ``b1.unpermute`` (and ``b1.window_angles`` in
+    windowed mode) once a light, and times ``shadow.rays`` inside
+    ``trace.shadow``; ``report()`` lists both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    sc = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(TINY, light_grid_mode="windowed")
+    r = rapi.Renderer(sc, cfg, device="cuda")
+    rapi.render_frame_device.clear()
+    try:
+        with profiler.tracing("cuda"):           # captures the traced key
+            r.render(CAMERA, [LIGHT], LIGHT.eye, use_spot=True)
+        with profiler.tracing("cuda") as rec:
+            for _ in range(3):
+                r.render(CAMERA, [LIGHT], LIGHT.eye, use_spot=True)
+    finally:
+        rapi.render_frame_device.clear()
+    for name in ("b1.shadow_rays", "b1.unpermute", "b1.window_angles"):
+        assert rec.counts[name] == 3, name
+    spans = _by_name(rec)["shadow.rays"]
+    assert len(spans) == 3
+    for s in spans:
+        assert s.t0 is None and s.d1 > s.d0      # ran inside the graph
+        p = s.parent
+        assert p.name == "trace.shadow" and p.d0 <= s.d0 and s.d1 <= p.d1
+    report = rec.report()
+    assert "shadow.rays" in report and "b1.shadow_rays" in report

@@ -38,6 +38,8 @@ from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
+from ugrt_torch.kernels.shadow_bin import (shadow_rays, unpermute,
+                                          window_angles)
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.kernels.uniform_dda import uniform_dda
 from ugrt_torch.shade import shaders
@@ -80,7 +82,8 @@ def render_frame(vertices, faces, mat_index, materials, camcoords,
 # and trace backend, which the port does not have).
 render_frame_device = Program(
     render_frame, static=("cfg", "capacity", "num_lights", "use_spot"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep))
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
+              unpermute, window_angles))
 
 
 def render_frame_reflective(vertices, faces, mat_index, materials,
@@ -156,8 +159,8 @@ render_frame_reflective = Program(
     static=("cfg", "capacity", "num_lights", "use_spot", "uniform_dims",
             "uniform_capacity", "reflectivity", "max_batches",
             "reflect_batch"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep,
-              uniform_dda))
+    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
+              unpermute, window_angles, uniform_dda))
 
 
 def _shade_at_points(refl_primary, origins, shade_cc, light_position,

@@ -76,11 +76,13 @@ from ugrt_torch.dist import all_reduce
 from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
+from ugrt_torch.kernels.shadow_bin import (shadow_rays, unpermute,
+                                          window_angles)
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 
 # The kernels a replay launches, credited per replay (core.program).
-COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep,
-            face_corner_sum, segment_sum)
+COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
+            unpermute, window_angles, face_corner_sum, segment_sum)
 
 
 class Mesh(NamedTuple):

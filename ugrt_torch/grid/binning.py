@@ -196,7 +196,13 @@ def windowed_face_ranges(vertices, faces, camcoords, grid_x, grid_y,
 def ray_light_cells_windowed(hit_points, camcoords, grid_x, grid_y, window):
     """Windowed-mode hit point -> light cell; outside/NaN -> sentinel."""
     d = normalize(hit_points - camcoords[0:3][None])
-    sx, sy = signed_xy_coords(d, camcoords)
+    return window_ray_cells(*signed_xy_coords(d, camcoords), window, grid_x,
+                            grid_y)
+
+
+def window_ray_cells(sx, sy, window, grid_x, grid_y):
+    """The light cells of rays with signed angles (sx, sy) under the
+    window; outside/NaN -> sentinel."""
     bx, by = _window_cells(sx, sy, window, grid_x, grid_y)
     inside = ((bx >= 0) & (bx < grid_x) & (by >= 0) & (by < grid_y)
               & ~torch.isnan(sx) & ~torch.isnan(sy))

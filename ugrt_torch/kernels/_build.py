@@ -51,7 +51,8 @@ NVCC_FLAGS = (
 # Library -> its .cu sources (each also links COMMON).
 LIBRARIES = {
     "kernels": ("primary_sweep.cu", "heavy_primary_sweep.cu",
-                "shadow_sweep.cu", "uniform_dda.cu", "segment_sum.cu"),
+                "shadow_sweep.cu", "uniform_dda.cu", "segment_sum.cu",
+                "shadow_bin.cu"),
     "probes": ("coeff_mt.cu", "tile_pipeline.cu", "heavy_variants.cu"),
 }
 COMMON = ("cuda_error.cu",)
@@ -73,6 +74,11 @@ SIGNATURES = {
                              _P, _P, _P, _P),
         "ugrt_segment_sum": (_P, _P, _L, _I, _I, _P, _P, _I, _P),
         "ugrt_face_corner_sum": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
+        "ugrt_shadow_rays": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _F,
+                             _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P),
+        "ugrt_shadow_unpermute": (_P, _P, _I, _P, _P),
+        "ugrt_shadow_window": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

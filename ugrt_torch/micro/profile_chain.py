@@ -18,9 +18,10 @@ functions (``LINE_ITEMS``), with the lines of the TPU-era scripts that
 profile_chain.py and bench's ``--breakdown`` leave out (the floor that
 every item pays, their round-trip line; the ray directions and tiling;
 the merge of K1's and K2's hits, the counterpart of profile_primary.py's
-segment-min combine), and two that
-attribute the glue around the sweeps (the normals, the shadow rays'
-rows).  The sweeps go through ``kernels._plain.choose_sweep`` as the
+segment-min combine), and the glue around the sweeps (the normals).
+The shadow rays' binning, sort, rows and unpermute, which the script
+times as five items, are B1's two launches here.  The sweeps go through
+``kernels._plain.choose_sweep`` and B1 through its wrappers, as the
 frame's do: the CUDA kernels on the card, their plain versions on the
 CPU.  K1, K2 and K3 alone take the inputs the frame hands them
 (``micro.k3_chunks.record_sweeps`` on an eager frame).
@@ -51,7 +52,7 @@ from ugrt_torch.bench import CAMERA, LIGHT
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.program import Program
-from ugrt_torch.core.vecmath import dot, normalize, sqrt, transform_point
+from ugrt_torch.core.vecmath import transform_point
 from ugrt_torch.dist import mesh as dmesh
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
@@ -59,6 +60,7 @@ from ugrt_torch.kernels._plain import choose_sweep
 from ugrt_torch.kernels.heavy_primary_sweep import (heavy_primary_sweep,
                                                     heavy_primary_sweep_plain)
 from ugrt_torch.kernels.primary_sweep import primary_sweep, primary_sweep_plain
+from ugrt_torch.kernels.shadow_bin import shadow_rays, unpermute
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep, shadow_sweep_plain
 from ugrt_torch.micro._common import card_line, main_device
 from ugrt_torch.micro._timing import chain_ms
@@ -89,11 +91,8 @@ LINE_ITEMS = (
     "  face normals + per-pixel gather",
     "shadow full",
     "shadow full (heavy off)",
-    "  ray_light_cells 1M",
-    "  stable sort (cells, ray ids) 1M",
-    "  gather pts[perm] 1M",
-    "  shadow ray rows (dir, distance) 1M",
-    "  unpermute (scatter) 1M",
+    "  B1 shadow_rays (bin, sort, rows) 1M",
+    "  B1 unpermute 1M",
     "  K3 shadow_sweep, box site",
     "  pack_tri_windows_coeff",
     "  K3 shadow_sweep, key site",
@@ -242,27 +241,12 @@ def run(cfg: RenderConfig, scene, device, n: int = N):
     lgrid_nh = heavy_off(lgrid)
     t("shadow full (heavy off)", lambda v: tshadow.trace_shadow(
         v, faces, lcc, lgrid_nh, prim, eye, cfg), verts)
-    pts = eye[None] + prim["t"].reshape(npx)[:, None] * prim[
-        "ray_dir"].reshape(npx, 3)
-    cells = t("  ray_light_cells 1M", lambda p: binning.ray_light_cells(
-        p, lcc, cfg.grid_x, cfg.grid_y, ext, ext, typo), pts)
-    _, perm = t("  stable sort (cells, ray ids) 1M",
-                lambda c: torch.sort(c, stable=True), cells)
-    spts = t("  gather pts[perm] 1M", lambda p: p[perm], pts)
-
-    def shadow_rows(p):
-        delta = p - L[None]
-        return normalize(delta), sqrt(dot(delta, delta))
-
-    t("  shadow ray rows (dir, distance) 1M", shadow_rows, spts)
-
-    def unpermute(flags):
-        out = torch.empty_like(flags)
-        out[perm] = flags
-        return out
-
-    t("  unpermute (scatter) 1M", unpermute,
-      torch.zeros((npx,), dtype=torch.int32, device=device))
+    rays = t("  B1 shadow_rays (bin, sort, rows) 1M",
+             lambda tt: shadow_rays(dict(t=tt, ray_dir=prim["ray_dir"]), eye,
+                                    lcc, cfg), prim["t"])
+    t("  B1 unpermute 1M", lambda flags: unpermute(flags, rays.perm),
+      torch.zeros(rays.rows.shape[:2], dtype=torch.int32, device=device))
+    cells = rays.scells[:npx]
     (tri_h, rows_s, hlo, hhi), kw = k3_sites[True]
     t("  K3 shadow_sweep, box site", lambda r: k3(
         tri_h, r, hlo, hhi, **kw), rows_s)

@@ -2,13 +2,14 @@
 
 Every pixel's shadow ray runs from the light to the primary hit point
 (misses included, with their garbage point eye - dir, as the reference
-reorders all rays).  Rays are sorted stably by light-grid cell with the
-hit point carried along, cut into 128-ray blocks, and swept by K3
-(kernels/shadow_sweep): per slab over the 256-wide windows of the light
-grid's pair span of each block's cells (admission by cell key), then
-over the 128-wide heavy windows whose footprint union the block's cells
-touch (admission by footprint box).  The flags OR together and scatter
-back through the sort permutation.  ``trace_shadow``'s ``backend`` is
+reorders all rays).  B1 (kernels/shadow_bin) bins the rays by
+light-grid cell, sorts them stably, and lays them out as 128-ray blocks
+of K3's rows; K3 (kernels/shadow_sweep) sweeps them per slab over the
+256-wide windows of the light grid's pair span of each block's cells
+(admission by cell key), then over the 128-wide heavy windows whose
+footprint union the block's cells touch (admission by footprint box).
+The flags OR together and B1 scatters them back through the sort
+permutation.  ``trace_shadow``'s ``backend`` is
 ugrt's argument (shadow.py:250-256) with the port's values, as
 ``trace.primary``'s.
 
@@ -30,12 +31,15 @@ import torch.distributed as dist
 
 from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
-from ugrt_torch.core.vecmath import dot, normalize, sqrt
+from ugrt_torch.core.vecmath import normalize
 from ugrt_torch.dist import all_reduce
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.grid.build import DeviceGrid
 from ugrt_torch.kernels._plain import choose_sweep
+from ugrt_torch.kernels.shadow_bin import (hit_points, shadow_rays,
+                                          shadow_rays_plain, unpermute,
+                                          unpermute_plain, window_angles)
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep, shadow_sweep_plain
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
@@ -136,19 +140,12 @@ def _f32(x, device):
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
-def _hit_points(primary, primary_eye):
-    H, W = primary["t"].shape
-    n = H * W
-    return (primary_eye[None] + primary["t"].reshape(n)[:, None]
-            * primary["ray_dir"].reshape(n, 3))
-
-
 def light_extents(primary, primary_eye, light_camcoords, cfg: RenderConfig,
                   margin: float = 1.001):
     """Per-frame (x_max, y_max) light-grid extents (0-d tensors): the max
     x/y angle of any hit point seen from the light (main.cu:174-185),
     NaN ignored, times ``margin``, clamped to [1e-3, pi]."""
-    pts = _hit_points(primary, primary_eye)
+    pts = hit_points(primary, primary_eye)
     d = normalize(pts - light_camcoords[0:3][None])
     xa = binning.x_angle(d, light_camcoords)
     ya = binning.y_angle(d, light_camcoords, cfg.quirks.y_forward_dot_typo)
@@ -176,78 +173,44 @@ def apply_window_margin(x0, x1, y0, y1, margin: float = WINDOW_MARGIN):
 def light_window(primary, primary_eye, light_camcoords, cfg: RenderConfig,
                  margin: float = WINDOW_MARGIN):
     """(x0, x1, y0, y1) 0-d tensors: the signed-angle window of the hit
-    points seen from the light, NaN excluded, padded by ``margin``."""
-    pts = _hit_points(primary, primary_eye)
-    d = normalize(pts - light_camcoords[0:3][None])
-    sx, sy = binning.signed_xy_coords(d, light_camcoords)
-
-    def lohi(s):
-        ok = ~torch.isnan(s)
-        return (torch.where(ok, s, 4.0).amin(),
-                torch.where(ok, s, -4.0).amax())
-
-    x0, x1 = lohi(sx)
-    y0, y1 = lohi(sy)
-    return apply_window_margin(x0, x1, y0, y1, margin)
+    points seen from the light, NaN excluded, padded by ``margin``
+    (B1's ``window_angles``, whose angles ``shadow_pass`` hands on to
+    ``trace_shadow``)."""
+    bounds, _ = window_angles(primary, primary_eye, light_camcoords)
+    return apply_window_margin(*bounds, margin)
 
 
 @profiler.spanned("trace.shadow", device=True)
 def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
                  primary, primary_eye, cfg: RenderConfig, *,
-                 x_max=None, y_max=None, window=None,
+                 x_max=None, y_max=None, window=None, angles=None,
                  backend: str | None = None):
     """Per-pixel shadow flags [H, W] int32 (mod_light_rckernel semantics).
 
     x_max/y_max override the angular extent of the ray -> cell mapping;
     ``window`` selects the windowed parameterization.  Either must match
     what ``light_grid`` was built with, or cell keys disagree.
-    ``backend``: None, "kernel" or "plain" (``trace.primary``), for both
-    of K3's sites.
+    ``angles``: windowed only, the rays' (sx, sy) from B1's
+    ``window_angles`` on this ``primary``, which the binning then reuses.
+    ``backend``: None, "kernel" or "plain" (``trace.primary``), for B1
+    and both of K3's sites.
     """
     H, W = primary["t"].shape
-    n = H * W
     dev = primary["t"].device
     sweep = choose_sweep(shadow_sweep, shadow_sweep_plain, backend, dev)
+    rays_fn = choose_sweep(shadow_rays, shadow_rays_plain, backend, dev)
+    unpermute_fn = choose_sweep(unpermute, unpermute_plain, backend, dev)
     L = light_camcoords[0:3]
     NS = cfg.num_slabs
     sentinel = cfg.cell_sentinel
-    if x_max is None:
-        x_max = cfg.angular_extent
-    if y_max is None:
-        y_max = cfg.angular_extent
 
-    pts = _hit_points(primary, primary_eye)
-    if window is not None:
-        cells = binning.ray_light_cells_windowed(
-            pts, light_camcoords, cfg.grid_x, cfg.grid_y, window)
-    else:
-        cells = binning.ray_light_cells(
-            pts, light_camcoords, cfg.grid_x, cfg.grid_y, x_max, y_max,
-            cfg.quirks.y_forward_dot_typo)
-
-    # Stable sort by light cell; per-ray math on the sorted points is
-    # elementwise, so it commutes with the permutation bitwise.
-    sorted_cells, perm = torch.sort(cells, stable=True)
-    n_pad = -(-n // 128) * 128
-    nb = n_pad // 128
-    delta = pts[perm] - L[None]
-    scells = torch.full((n_pad,), sentinel, dtype=torch.int32, device=dev)
-    scells[:n] = sorted_cells
-    scell_blk = scells.reshape(nb, 128)
-
-    # Ray rows [NB, 128, 8]: dir 0:3, light-to-point distance 3, cell key
-    # 4 (set per slab; -1 for sentinel rays), light cell (gx, gy) 5:7 for
-    # the footprint test — sentinel rays get gx = grid_x, outside every
-    # footprint.
-    rows = torch.zeros((n_pad, 8), dtype=torch.float32, device=dev)
-    rows[:n, 0:3] = normalize(delta)
-    rows[:n, 3] = sqrt(dot(delta, delta))
-    rows[:, 5] = torch.div(scells, cfg.grid_y, rounding_mode="floor").float()
-    rows[:, 6] = (scells % cfg.grid_y).float()
-    rows = rows.reshape(nb, 128, 8)
-
-    first_cell = scell_blk[:, 0]          # sorted: the block's min cell
-    last_real = torch.where(scell_blk < sentinel, scell_blk, -1).amax(dim=1)
+    # The rays sorted stably by light cell, and K3's rows of them (B1).
+    with profiler.span("shadow.rays", device=True):
+        rays = rays_fn(primary, primary_eye, light_camcoords, cfg,
+                       x_max=x_max, y_max=y_max, window=window,
+                       angles=angles)
+    rows = rays.rows
+    first_cell, last_real = rays.first_cell, rays.last_real
     live = last_real >= 0
     k1 = torch.clamp(first_cell, 0, sentinel - 1).long() * NS
     k2 = torch.clamp(last_real, 0, sentinel - 1).long() * NS
@@ -255,10 +218,13 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
     tri_w = tw.pack_tri_windows_coeff(vertices, faces, light_grid, L,
                                       win=SWIN)
     serial = window is None
+    nb = rows.shape[0]
     shadow_blocks = torch.zeros((nb, 128), dtype=torch.int32, device=dev)
     for slab in range(NS):
-        rows[:, :, 4] = torch.where(scell_blk < sentinel,
-                                    (scell_blk * NS + slab).float(), -1.0)
+        if slab:    # the rows carry slab 0's keys
+            scell_blk = rays.scells.reshape(nb, 128)
+            rows[:, :, 4] = torch.where(scell_blk < sentinel,
+                                        (scell_blk * NS + slab).float(), -1.0)
         lo = torch.where(live, light_grid.cell_offset[k1 + slab], 0)
         hi = torch.where(live, light_grid.cell_offset[k2 + slab]
                          + light_grid.cell_count[k2 + slab], 0)
@@ -278,11 +244,7 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         shadow_blocks |= sweep(tri_hw, rows, hlo, hhi, cfg=cfg, box=True,
                                chunk=HCHUNK)
 
-    # Unpermute: a scatter by the sort permutation (unique indices, so
-    # deterministic).
-    shadowed = torch.empty((n,), dtype=torch.int32, device=dev)
-    shadowed[perm] = shadow_blocks.reshape(n_pad)[:n]
-    return shadowed.reshape(H, W)
+    return unpermute_fn(shadow_blocks, rays.perm).reshape(H, W)
 
 
 def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
@@ -315,14 +277,14 @@ def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
     MIN, MAX = dist.ReduceOp.MIN, dist.ReduceOp.MAX
     for li in range(num_lights):
         lcc = light_camcoords[li]
-        x_max = y_max = window = None
+        x_max = y_max = window = angles = None
         if mode == "extent":
             x_max, y_max = (all_reduce(a, MAX, group) for a in
                             light_extents(primary, eye, lcc, cfg))
         elif mode == "windowed":
             # The margin goes on after the reduction, so the window is
             # the one of all the image's rays.
-            x0, x1, y0, y1 = light_window(primary, eye, lcc, cfg, margin=0.0)
+            (x0, x1, y0, y1), angles = window_angles(primary, eye, lcc)
             window = apply_window_margin(
                 all_reduce(x0, MIN, group), all_reduce(x1, MAX, group),
                 all_reduce(y0, MIN, group), all_reduce(y1, MAX, group))
@@ -330,7 +292,8 @@ def shadow_pass(vertices, faces, primary, camcoords, light_camcoords,
             vertices, faces, lcc, cfg=cfg, capacity=lcap, x_max=x_max,
             y_max=y_max, window=window)
         sh = trace_shadow(vertices, faces, lcc, lgrid, primary, eye, cfg,
-                          x_max=x_max, y_max=y_max, window=window)
+                          x_max=x_max, y_max=y_max, window=window,
+                          angles=angles)
         shadowed = torch.maximum(shadowed, sh)
         overflow = overflow | lgrid.overflow
         shade_cc = lcc
