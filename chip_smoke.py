@@ -2174,11 +2174,8 @@ def profiling_phase():
                      "time, or K1, K2, K3 or G1 missing from parse_trace's "
                      "table")
 
-        # No profile of the step in this process here: at this point of
-        # the run a profiled replay of the step's graph crashed the
-        # process inside CUPTI with the first version of G1's kernels
-        # (PERF.md §7; micro.profile_crash drives that sequence);
-        # capture_trace's subprocess above profiles the same step.
+        # No profile of the step in this process (the profiler crash,
+        # PERF.md §7): capture_trace's subprocess above profiles it.
         out, secs = run_module("ugrt_torch.micro.render_samples", "--out",
                                tmp, phase="phase 13")
         shapes = {}

@@ -30,7 +30,7 @@ from ugrt.scene import procedural as proc_j
 from ugrt_torch import bench
 from ugrt_torch import bridge
 from ugrt_torch.grid import build as tbuild
-from ugrt_torch.kernels import _plain
+from ugrt_torch.kernels import _build
 from ugrt_torch.micro import _timing
 from ugrt_torch.micro import bench_reflective
 from ugrt_torch.scene import procedural
@@ -186,12 +186,18 @@ def _hit_pixels(cfg, scene):
     return int((r["face_id"] >= 0).sum())
 
 
-def _cpu_kernel_backend(monkeypatch):
+def _cpu_kernel_backend(monkeypatch, plain=None):
     """Let backend="kernel" take CPU tensors: the traces then call the
-    kernel wrappers, which run their own plain versions on the CPU."""
+    kernel wrappers, which run their own plain versions on the CPU.
+    ``plain``: (wrapper, function) that backend "plain" takes in place
+    of that wrapper's plain version."""
+    def choose(k, b, d):
+        if plain is not None and b == "plain" and k is plain[0]:
+            return plain[1]
+        return _build.choose_sweep(k, None if b == "kernel" else b, d)
+
     for mod in (tprim_t, tshadow_t):
-        monkeypatch.setattr(mod, "choose_sweep", lambda k, p, b, d: (
-            _plain.choose_sweep(k, p, None if b == "kernel" else b, d)))
+        monkeypatch.setattr(mod, "choose_sweep", choose)
 
 
 @pytest.mark.parametrize("patch", [None, "primary", "shadow"])
@@ -210,26 +216,25 @@ def test_parity_gate(monkeypatch, patch):
         _cpu_kernel_backend(monkeypatch)
         assert bench.parity_gate("cpu") == 0
         return
-    _cpu_kernel_backend(monkeypatch)
     if patch == "primary":
         cfg = dataclasses.replace(bench.small_config(), heavy_threshold=0)
         scene = procedural.cathedral(num_faces_target=8000)
-        plain = tprim_t.primary_sweep_plain
+        plain = tprim_t.primary_sweep.plain
 
         def flipped(*args, **kwargs):
             t, f = plain(*args, **kwargs)
             return t, torch.where(f != 2**31 - 1, f ^ 1, f)
 
-        monkeypatch.setattr(tprim_t, "primary_sweep_plain", flipped)
+        _cpu_kernel_backend(monkeypatch, (tprim_t.primary_sweep, flipped))
         n = _hit_pixels(cfg, scene)
         assert n > 1000
         with pytest.raises(RuntimeError, match=re.escape(
                 f"parity gate: primary face ids diverge on chip ({n} px)")):
             bench.parity_gate("cpu", cfg=cfg, scene=scene)
         return
-    plain = tshadow_t.shadow_sweep_plain
-    monkeypatch.setattr(tshadow_t, "shadow_sweep_plain",
-                        lambda *a, **k: plain(*a, **k) ^ 1)
+    plain = tshadow_t.shadow_sweep.plain
+    _cpu_kernel_backend(monkeypatch, (tshadow_t.shadow_sweep,
+                                      lambda *a, **k: plain(*a, **k) ^ 1))
     with pytest.raises(RuntimeError,
                        match=r"shadow masks diverge on chip \((\d+) px"):
         bench.parity_gate("cpu")

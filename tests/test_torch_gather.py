@@ -417,9 +417,9 @@ def test_wrapper_checks_and_cpu_route():
                        g1.segment_sum_plain(values, idx.long(), 10))
     assert g1.segment_sum.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        g1._launch(values, idx, 10)
+        _build.choose_sweep(g1.segment_sum, "kernel", values.device)
     with pytest.raises(TypeError, match="float32"):
-        g1._launch(values.double(), idx, 10)
+        g1.segment_sum.body(values.double(), idx, 10)
     wide = g1.segment_sum(values.double(), idx, 10)
     assert wide.dtype == torch.float64 and torch.equal(
         wide, g1.segment_sum_plain(values.double(), idx, 10))
@@ -457,9 +457,9 @@ def test_face_wrapper_checks_and_cpu_route():
         values.reshape(-1, 3), faces[fid].reshape(-1).long(), 30))
     assert torch.equal(got, g1.face_corner_sum_plain(values, fid, faces, 30))
     with pytest.raises(ValueError, match="CUDA"):
-        g1._launch_faces(values, fid, faces, 30)
+        _build.choose_sweep(g1.face_corner_sum, "kernel", values.device)
     with pytest.raises(TypeError, match="float32"):
-        g1._launch_faces(values.double(), fid, faces, 30)
+        g1.face_corner_sum.body(values.double(), fid, faces, 30)
     with pytest.raises(ValueError):
         g1.face_corner_sum(values[:, :6].contiguous(), fid, faces, 30)
     with pytest.raises(TypeError):
@@ -495,7 +495,7 @@ def test_kernel_constants_and_entry_point():
     assert [g1.table(5000, c) for c in (wide, wide + 1)] == [
         "hashed", "global"]
     assert g1.CORNER_COLUMNS <= wide and 6 <= wide
-    assert "mode" not in inspect.signature(g1._launch).parameters
+    assert "mode" not in inspect.signature(g1.segment_sum).parameters
     for name in ("ugrt_segment_sum", "ugrt_face_corner_sum"):
         params = re.search(rf'extern "C" int {name}\((.*?)\)', src,
                            re.S).group(1)

@@ -223,19 +223,24 @@ def test_shadow_sweep_skewed(chunk):
 
 # ugrt's backend= argument (shadow.py:250-256) with the port's values:
 # "plain" bitwise the default on CPU tensors at both of K3's sites (a
-# heavy list, windowed), "kernel" on CPU tensors and an unknown name
-# raise.
+# heavy list, windowed; the default through the wrapper, "plain"
+# past it), "kernel" on CPU tensors and an unknown name raise.
 @pytest.mark.parametrize("backend", ["plain", "kernel", "unknown"])
 def test_trace_shadow_backend(small_cfg, cornell, generic_camera,
                               generic_light, backend, monkeypatch):
-    calls = []
-    plain = tshadow_t.shadow_sweep_plain
+    calls, wrapped = [], []
+    plain, check = k3.shadow_sweep.plain, k3.shadow_sweep.check
 
     def counted(*args, **kwargs):
         calls.append(kwargs.get("box", False))
         return plain(*args, **kwargs)
 
-    monkeypatch.setattr(tshadow_t, "shadow_sweep_plain", counted)
+    def checked(*args, **kwargs):
+        wrapped.append(kwargs.get("box", False))
+        return check(*args, **kwargs)
+
+    monkeypatch.setattr(k3.shadow_sweep, "plain", counted)
+    monkeypatch.setattr(k3.shadow_sweep, "check", checked)
     if backend != "plain":
         monkeypatch.setattr(tshadow_t, "trace_shadow", functools.partial(
             tshadow_t.trace_shadow, backend=backend))
@@ -243,16 +248,19 @@ def test_trace_shadow_backend(small_cfg, cornell, generic_camera,
         with pytest.raises(ValueError, match=match):
             _shadow_both(cornell, generic_camera, generic_light, small_cfg,
                          "windowed", 4)
-        assert not calls
+        assert not calls and not wrapped
         return
     lg, _, sh_j, want = _shadow_both(cornell, generic_camera, generic_light,
                                      small_cfg, "windowed", 4)
-    assert not calls                 # the default: the wrapper
+    # The default: the wrapper, whose CPU route is the plain version.
+    assert calls == wrapped and sorted(set(calls)) == [False, True]
+    calls.clear()
+    wrapped.clear()
     monkeypatch.setattr(tshadow_t, "trace_shadow", functools.partial(
         tshadow_t.trace_shadow, backend="plain"))
     _, _, _, got = _shadow_both(cornell, generic_camera, generic_light,
                                 small_cfg, "windowed", 4)
-    assert sorted(set(calls)) == [False, True]
+    assert not wrapped and sorted(set(calls)) == [False, True]
     assert int(lg.heavy_count) > 0 and want.sum() > 100
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(sh_j, want)

@@ -259,14 +259,17 @@ def test_shadow_pass_hands_the_window_angles_on(small_cfg, cornell,
     pt = {k: bridge.from_numpy(a, "cpu") for k, a in prim.items()}
     cc_t, lcc_t = bridge.from_numpy(cc, "cpu"), bridge.from_numpy(lcc, "cpu")
     seen = []
-    name = "shadow_rays_plain" if backend == "plain" else "shadow_rays"
-    inner = getattr(tshadow_t, name)
+    # The plain backend calls the wrapper's plain version; the default,
+    # the wrapper.
+    owner, name = ((b1.shadow_rays, "plain") if backend == "plain"
+                   else (tshadow_t, "shadow_rays"))
+    inner = getattr(owner, name)
 
     def spy(*args, **kwargs):
         seen.append(kwargs.get("angles") is not None)
         return inner(*args, **kwargs)
 
-    monkeypatch.setattr(tshadow_t, name, spy)
+    monkeypatch.setattr(owner, name, spy)
     if backend is not None:
         monkeypatch.setattr(tshadow_t, "trace_shadow", functools.partial(
             tshadow_t.trace_shadow, backend=backend))

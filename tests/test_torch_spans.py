@@ -397,10 +397,10 @@ def test_shadow_rays_span_nests_in_trace_shadow(mode):
 
 @pytest.mark.cuda
 def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
-    """On the card, each replay of a traced frame credits the counters
-    ``b1.shadow_rays`` and ``b1.unpermute`` (and ``b1.window_angles`` in
-    windowed mode) once a light, and times ``shadow.rays`` inside
-    ``trace.shadow``; ``report()`` lists both."""
+    """On the card, each replay of a traced frame credits B1's counters
+    ``kernel.shadow_rays`` and ``kernel.unpermute`` (and
+    ``kernel.window_angles`` in windowed mode) once a light, and times
+    ``shadow.rays`` inside ``trace.shadow``; ``report()`` lists both."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
@@ -416,7 +416,8 @@ def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
                 r.render(CAMERA, [LIGHT], LIGHT.eye, use_spot=True)
     finally:
         rapi.render_frame_device.clear()
-    for name in ("b1.shadow_rays", "b1.unpermute", "b1.window_angles"):
+    for name in ("kernel.shadow_rays", "kernel.unpermute",
+                 "kernel.window_angles"):
         assert rec.counts[name] == 3, name
     spans = _by_name(rec)["shadow.rays"]
     assert len(spans) == 3
@@ -425,4 +426,4 @@ def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
         p = s.parent
         assert p.name == "trace.shadow" and p.d0 <= s.d0 and s.d1 <= p.d1
     report = rec.report()
-    assert "shadow.rays" in report and "b1.shadow_rays" in report
+    assert "shadow.rays" in report and "kernel.shadow_rays" in report

@@ -34,14 +34,9 @@ from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.host_camera import CameraSpec
 from ugrt_torch.core.program import Program
-from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
+from ugrt_torch.core.vecmath import (absolute, dot, normalize, rotate_basis,
+                                     scalar)
 from ugrt_torch.grid import build as gbuild
-from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
-from ugrt_torch.kernels.primary_sweep import primary_sweep
-from ugrt_torch.kernels.shadow_bin import (shadow_rays, unpermute,
-                                          window_angles)
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep
-from ugrt_torch.kernels.uniform_dda import uniform_dda
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
 from ugrt_torch.trace import reflect as treflect
@@ -81,9 +76,7 @@ def render_frame(vertices, faces, mat_index, materials, camcoords,
 # ugrt/api/renderer.py:37-41 (its static arguments but the chunk size
 # and trace backend, which the port does not have).
 render_frame_device = Program(
-    render_frame, static=("cfg", "capacity", "num_lights", "use_spot"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
-              unpermute, window_angles))
+    render_frame, static=("cfg", "capacity", "num_lights", "use_spot"))
 
 
 def render_frame_reflective(vertices, faces, mat_index, materials,
@@ -139,8 +132,7 @@ def render_frame_reflective(vertices, faces, mat_index, materials,
                                       shade_cc, light_position, mat_index,
                                       materials, cfg)
 
-        kr = torch.full((), reflectivity, dtype=torch.float32,
-                        device=vertices.device)
+        kr = scalar(reflectivity, vertices.device)
         mixed = ((1.0 - kr) * base["color"]
                  + kr * torch.where((rfid >= 0)[..., None], refl_color, 0.0))
         image = (torch.clamp(mixed, 0.0, 1.0) * 255.0).to(torch.uint8)
@@ -158,9 +150,7 @@ render_frame_reflective = Program(
     render_frame_reflective,
     static=("cfg", "capacity", "num_lights", "use_spot", "uniform_dims",
             "uniform_capacity", "reflectivity", "max_batches",
-            "reflect_batch"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
-              unpermute, window_angles, uniform_dda))
+            "reflect_batch"))
 
 
 def _shade_at_points(refl_primary, origins, shade_cc, light_position,

@@ -222,7 +222,7 @@ def breakdown_ms(w: Workload, x: dict, n: int) -> dict:
     programs, ms = [], {}
 
     def timed(key, fn):
-        program = Program(fn, static=(), counters=dmesh.COUNTERS)
+        program = Program(fn, static=())
         programs.append(program)
         timing, out = chain_ms(program, x["vertices"], n=n)
         ms.update({key: timing.host_ms, key + "_events": timing.event_ms})

@@ -9,12 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ugrt_torch.core.vecmath import normalize
-
-
-def _scalar(x, device):
-    # A fill, not a host-to-device copy (capturable; see core.program).
-    return torch.full((), x, dtype=torch.float32, device=device)
+from ugrt_torch.core.vecmath import normalize, scalar
 
 
 def primary_ray_dirs(camcoords, width: int, height: int):
@@ -33,8 +28,8 @@ def primary_ray_dirs(camcoords, width: int, height: int):
     # Divide by device tensors: on CUDA, PyTorch turns division by a
     # host scalar into multiplication by its reciprocal, which can round
     # differently from ugrt's true division.
-    fx = (1.0 - col / _scalar(width, dev))[None, :, None]
-    fy = (row / _scalar(height, dev))[:, None, None]
+    fx = (1.0 - col / scalar(width, dev))[None, :, None]
+    fy = (row / scalar(height, dev))[:, None, None]
 
     bottom = c0[None, None, :] + fx * (c1 - c0)[None, None, :]
     top = c3[None, None, :] + fx * (c2 - c3)[None, None, :]

@@ -35,19 +35,14 @@ capture.  A host read in the body itself raises in either mode.
 A backward in a body runs on the capturing thread
 (``torch.autograd.set_multithreading_enabled(False)``, as
 ``render_and_grad`` and ``dist.mesh`` do), not on autograd's worker
-thread.  Late in a full run of ``chip_smoke.py``, a replay of the
-step's graph under torch.profiler crashed the process (SIGSEGV inside
-CUPTI's callback of ``cuGraphLaunch``, in libcuda) while the step held
-the first version of G1's kernels.  ``micro.profile_crash`` drives that
-sequence; with those kernels it crashed in some of its runs, with the
-present ones in none so far, too few runs to tell the two apart; what
-CUPTI reads there is not known (PERF.md §7).
+thread.  torch.profiler over a replayed step has crashed the process
+(PERF.md §7).
 
 Kernel launch counts.  A replay runs the kernels that the capture
-recorded without running their Python wrappers, so ``counters`` (objects
-with an int ``launches``, the kernel wrappers) are credited with each
-replay's launches: the launches the wrappers counted while they were
-recorded, which launched nothing.
+recorded without running their Python wrappers, so every hand kernel
+(``kernels._build.KERNELS``) is credited with each replay's launches:
+the launches its wrapper counted while the capture recorded them, which
+launched nothing.
 
 Spans (``api.profiler``).  A call is the span ``program.call`` (binding,
 key, input copies, replay, output clones); the replay is the device span
@@ -72,6 +67,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ugrt_torch.api import profiler
+from ugrt_torch.kernels._build import KERNELS
 
 
 class Program:
@@ -79,10 +75,9 @@ class Program:
     key; see the module docstring."""
 
     def __init__(self, fn: Callable, static: Sequence[str],
-                 counters: Sequence = (), capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global"):
         self.fn = fn
         self.static = tuple(static)
-        self.counters = tuple(counters)
         self.capture_error_mode = capture_error_mode
         self._signature = inspect.signature(fn)
         self._cache: dict = {}
@@ -110,7 +105,7 @@ class Program:
             key += ("traced",)
         entry = self._cache.get(key)
         if entry is None:
-            entry = _Capture(self.fn, statics, tensors, self.counters,
+            entry = _Capture(self.fn, statics, tensors,
                              self.capture_error_mode)
             self._cache[key] = entry
         return entry(tensors)
@@ -132,10 +127,9 @@ class _Capture:
     """One key of a Program: its input buffers and, on the card, its
     graph and the graph's outputs."""
 
-    def __init__(self, fn, statics, example, counters, error_mode):
+    def __init__(self, fn, statics, example, error_mode):
         self.fn = fn
         self.statics = statics
-        self.counters = counters
         self.error_mode = error_mode
         self.graph = None
         self.template = None      # the traced key's spans (api.profiler)
@@ -162,7 +156,7 @@ class _Capture:
                 with torch.cuda.stream(side):
                     self._run()
                 torch.cuda.current_stream(device).wait_stream(side)
-                before = [c.launches for c in self.counters]
+                before = {k: k.launches for k in KERNELS.values()}
                 self.graph = torch.cuda.CUDAGraph()
                 with profiler.capturing() as template, torch.cuda.graph(
                         self.graph, capture_error_mode=self.error_mode):
@@ -170,10 +164,12 @@ class _Capture:
                 self.template = template
                 # The wrappers counted launches that they only recorded: each
                 # replay makes them.
-                self.credit = [c.launches - n
-                               for c, n in zip(self.counters, before)]
-                for c, n in zip(self.counters, before):
-                    c.launches = n
+                self.credit = []
+                for k in KERNELS.values():
+                    n = k.launches - before.get(k, 0)
+                    if n:
+                        self.credit.append((k, n))
+                        k.launches -= n
                 torch.cuda.synchronize(device)
             self.capture_s = time.perf_counter() - t0
         profiler.count("program.captures")
@@ -194,7 +190,7 @@ class _Capture:
                     self.graph.replay()
             self.last = profiler.replayed(self.template, replay)
             out = self.outputs
-            for c, n in zip(self.counters, self.credit):
-                c.launches += n
+            for k, n in self.credit:
+                k.launches += n
         return pytree.tree_map(
             lambda x: x.clone() if isinstance(x, torch.Tensor) else x, out)

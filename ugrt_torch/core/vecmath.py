@@ -20,6 +20,15 @@ from __future__ import annotations
 import torch
 
 
+def scalar(x, device, dtype=torch.float32):
+    """``x`` as a 0-d tensor of ``dtype`` on ``device``: a Python number
+    becomes a fill, not a host-to-device copy, which a graph capture
+    refuses (core.program); a tensor is converted."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def cross(a, b):
     """CROSS macro (main.cu.h:44-47)."""
     return torch.stack(

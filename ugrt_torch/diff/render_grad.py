@@ -34,12 +34,6 @@ from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.program import Program
 from ugrt_torch.grid import build as gbuild
-from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
-from ugrt_torch.kernels.primary_sweep import primary_sweep
-from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
-from ugrt_torch.kernels.shadow_bin import (shadow_rays, unpermute,
-                                          window_angles)
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.shade import shaders
 from ugrt_torch.trace import primary as tprimary
 from ugrt_torch.trace import refine as trefine
@@ -98,9 +92,7 @@ class _StepProgram(Program):
 
 
 @functools.partial(
-    _StepProgram, static=("cfg", "capacity", "num_lights", "use_spot"),
-    counters=(primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
-              unpermute, window_angles, face_corner_sum, segment_sum))
+    _StepProgram, static=("cfg", "capacity", "num_lights", "use_spot"))
 def render_and_grad(vertices, materials, faces, mat_index, camcoords,
                     light_camcoords, light_position, target, *,
                     cfg: RenderConfig, capacity: int, num_lights: int,

@@ -71,18 +71,9 @@ import torch.distributed as dist
 from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.program import Program
+from ugrt_torch.core.vecmath import scalar
 from ugrt_torch.diff.render_grad import render_color
 from ugrt_torch.dist import all_reduce
-from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
-from ugrt_torch.kernels.primary_sweep import primary_sweep
-from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
-from ugrt_torch.kernels.shadow_bin import (shadow_rays, unpermute,
-                                          window_angles)
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep
-
-# The kernels a replay launches, credited per replay (core.program).
-COUNTERS = (primary_sweep, heavy_primary_sweep, shadow_sweep, shadow_rays,
-            unpermute, window_angles, face_corner_sum, segment_sum)
 
 
 class Mesh(NamedTuple):
@@ -148,7 +139,7 @@ def _kept_program(make, mesh: Mesh, cfg: RenderConfig, capacity: int,
                     _strip_width(cfg, mesh.world_size),
                     dict(cfg=cfg, capacity=capacity, num_lights=num_lights,
                          use_spot=use_spot))
-        _kept[key] = Program(body, static=(), counters=COUNTERS,
+        _kept[key] = Program(body, static=(),
                              capture_error_mode="thread_local")
     return _kept[key]
 
@@ -227,10 +218,8 @@ def _step_body(group, rank, world_size, n_bx, kw):
                 v, m, faces, mat_index, camcoords, light_camcoords,
                 light_position, **kw, bx0=bx0, n_bx=n_bx, group=group)
             # Divide by a device tensor: on CUDA, a Python divisor turns
-            # into a multiply by its reciprocal.  A fill, not a copy from
-            # the host, which a capture refuses.
-            denom = torch.full((), 3.0 * cfg.image_size,
-                               dtype=torch.float32, device=color.device)
+            # into a multiply by its reciprocal.
+            denom = scalar(3.0 * cfg.image_size, color.device)
             loss = torch.sum((color - target[:, cols]) ** 2) / denom
             # On this thread, as render_and_grad's (core/program.py).
             with torch.autograd.set_multithreading_enabled(False):

@@ -19,19 +19,10 @@ from __future__ import annotations
 import torch
 
 from ugrt_torch.core.vecmath import (acos, dot, magnitude, normalize,
-                                     transform_point)
+                                     scalar, transform_point)
 
 _I32_MIN = -2147483648.0
 _I32_LIM = 2147483648.0
-
-
-def _f32(x, like):
-    """``x`` (a Python number or a tensor) as f32 on ``like``'s device;
-    a number becomes a fill, not a host-to-device copy (capturable; see
-    core.program)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dtype=torch.float32, device=like.device)
-    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _sat_int32(x):
@@ -43,13 +34,13 @@ def _sat_int32(x):
 
 def _trunc_int(x):
     """C float->int cast: truncation toward zero; NaN -> 0."""
-    x = torch.where(torch.isnan(x), _f32(0.0, x), x)
+    x = torch.where(torch.isnan(x), scalar(0.0, x.device), x)
     return _sat_int32(torch.trunc(x))
 
 
 def _floor_int(x):
     """floorf then int conversion, NaN -> 0."""
-    x = torch.where(torch.isnan(x), _f32(0.0, x), x)
+    x = torch.where(torch.isnan(x), scalar(0.0, x.device), x)
     return _sat_int32(torch.floor(x))
 
 
@@ -73,7 +64,8 @@ def block_x(vec, camcoords, grid_x: int, max_angle):
     angle = acos(dot(tmp, forward[None]))
     right_dot = dot(tmp, right[None])
     half = grid_x // 2
-    step = _trunc_int((angle / _f32(max_angle, vec)) * _f32(half, vec))
+    dev = vec.device
+    step = _trunc_int((angle / scalar(max_angle, dev)) * scalar(half, dev))
     return torch.where(right_dot > 0, half + step, half - step).to(torch.int32)
 
 
@@ -86,8 +78,8 @@ def block_y(vec, camcoords, grid_y: int, max_angle, y_typo: bool):
     up_dot = dot(tmp, up[None])
     fwd_dot = _typo_dot(tmp, forward) if y_typo else dot(tmp, forward[None])
     angle = acos(fwd_dot)
-    half = _f32(grid_y // 2, vec)
-    step = (angle / _f32(max_angle, vec)) * half
+    half = scalar(grid_y // 2, vec.device)
+    step = (angle / scalar(max_angle, vec.device)) * half
     return _trunc_int(torch.where(up_dot > 0, half + step, half - step))
 
 
@@ -133,7 +125,7 @@ def perspective_face_ranges(vertices, faces, camcoords, grid_x, grid_y):
     v = vertices[faces.long()]                      # [F, 3, 3]
     view = transform_point(camcoords[16:32], v)
     ndc = transform_point(camcoords[32:48], view)
-    half = _f32(0.5, v)
+    half = scalar(0.5, v.device)
 
     def cell(c, n):
         return _floor_int((c + 1.0) * half * n)
@@ -177,8 +169,8 @@ def signed_xy_coords(vec, camcoords):
 
 def _window_cells(sx, sy, window, grid_x, grid_y):
     x0, x1, y0, y1 = window
-    bx = _floor_int((sx - x0) / (x1 - x0) * _f32(grid_x, sx))
-    by = _floor_int((sy - y0) / (y1 - y0) * _f32(grid_y, sy))
+    bx = _floor_int((sx - x0) / (x1 - x0) * scalar(grid_x, sx.device))
+    by = _floor_int((sy - y0) / (y1 - y0) * scalar(grid_y, sy.device))
     return bx, by
 
 
@@ -213,7 +205,7 @@ def window_ray_cells(sx, sy, window, grid_x, grid_y):
 def slab_bins(zmin, z_lo, z_hi, num_slabs: int):
     """SlabKernel (grid_kernel.cu:334-352)."""
     t = (zmin - z_lo) / (z_hi - z_lo)
-    bins = _trunc_int(_f32(num_slabs, zmin) * t)
+    bins = _trunc_int(scalar(num_slabs, zmin.device) * t)
     bins = torch.where(zmin >= 0.0, bins, 0)
     return torch.clamp(bins, 0, num_slabs - 1).to(torch.int32)
 
@@ -221,7 +213,7 @@ def slab_bins(zmin, z_lo, z_hi, num_slabs: int):
 def z_minmax(zmin_per_face):
     """Host z reduction (frustum_grid.h:225-241) on the device:
     z_lo = min over values >= 0 (init +2), z_hi = max over all (init -2)."""
-    two = _f32(2.0, zmin_per_face)
+    two = scalar(2.0, zmin_per_face.device)
     z_lo = torch.minimum(
         two, torch.where(zmin_per_face >= 0.0, zmin_per_face, two).amin())
     z_hi = torch.maximum(-two, zmin_per_face.amax())

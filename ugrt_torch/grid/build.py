@@ -20,6 +20,7 @@ import torch
 from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.ragged import segment_ids_from_starts
+from ugrt_torch.core.vecmath import scalar
 from ugrt_torch.grid import binning
 
 _MAXI = 2**31 - 1
@@ -190,8 +191,7 @@ def build_spherical_grid(vertices, faces, camcoords, *,
 def _filled(values, dtype, device):
     """A 1-D tensor of host ``values`` made by fills, not a copy from host
     memory (capturable; see core.program)."""
-    return torch.stack([torch.full((), v, dtype=dtype, device=device)
-                        for v in values])
+    return torch.stack([scalar(v, device, dtype) for v in values])
 
 
 def uniform_face_ranges(vertices, faces, aabb_min, aabb_max, grid_x: int,

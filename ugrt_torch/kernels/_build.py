@@ -21,6 +21,14 @@ contraction (``-fmad=false``), IEEE division and square root, and
 denormals kept.  A kernel that needs more than 48 KB of shared memory
 opts in with ``cudaFuncSetAttribute`` in its C launcher; a refused
 launch comes back as the entry point's error and ``launch`` raises.
+
+Every hand kernel's Python wrapper is a ``Kernel`` (the ``kernel``
+decorator), which holds the wrapper's plain PyTorch version and routes
+each call by the device of its tensors: CPU tensors to the plain
+version, CUDA tensors to the wrapper's CUDA body.  ``Kernel.launches``
+counts the calls whose body launched; every Kernel is in ``KERNELS``,
+from which ``core.program`` credits a graph replay with the launches
+its capture recorded.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ugrt_torch.api import profiler
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -187,10 +197,16 @@ def library(lib: str = "kernels") -> ctypes.CDLL:
     return dll
 
 
+# Entry point calls made by ``launch`` in this process.
+_launched = 0
+
+
 def launch(name: str, *args) -> None:
     """Call entry point ``name`` on the card that holds its first tensor
     argument, on that card's current stream; tensors pass as their data
     pointers.  Raises if the launch reports an error."""
+    global _launched
+    _launched += 1
     dll = library(_LIBRARY_OF[name])
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -218,3 +234,65 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
                          f"{tuple('*' if s is None else s for s in shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+# Every Kernel, by wrapper name.
+KERNELS: dict = {}
+
+
+class Kernel:
+    """A hand kernel's wrapper (made by ``kernel``).  A call runs
+    ``check``, which raises on bad arguments and returns the device of
+    the call's tensors; CPU tensors then take ``plain``, CUDA tensors
+    the CUDA ``body``, and any other device raises ``ValueError``.
+    ``body`` and ``plain`` take the wrapper's arguments.
+
+    ``launches`` counts the calls whose body issued at least one
+    ``launch`` (while the recorder is on, also the counter
+    ``kernel.<name>`` of ``api.profiler``).  A graph replay runs no
+    wrapper: ``core.program`` credits each Kernel of ``KERNELS`` with
+    what its capture counted."""
+
+    def __init__(self, body, plain, check):
+        functools.update_wrapper(self, body)
+        self.body, self.plain, self.check = body, plain, check
+        self.launches = 0
+        self._counter = f"kernel.{body.__name__}"
+        KERNELS[body.__name__] = self
+
+    def __call__(self, *args, **kwargs):
+        device = self.check(*args, **kwargs)
+        if device.type == "cpu":
+            return self.plain(*args, **kwargs)
+        if device.type != "cuda":
+            raise ValueError(f"{self.__name__}: unsupported device {device}")
+        before = _launched
+        out = self.body(*args, **kwargs)
+        if _launched != before:
+            self.launches += 1
+            profiler.count(self._counter)
+        return out
+
+
+def kernel(plain, check):
+    """Decorate a CUDA body as a ``Kernel`` with plain version ``plain``
+    and argument check ``check``."""
+    return lambda body: Kernel(body, plain, check)
+
+
+def choose_sweep(kernel, backend, device):
+    """The function a trace calls for ``backend`` (ugrt's ``backend=`` of
+    trace_primary / trace_shadow) on tensors of ``device``: None, the
+    Kernel ``kernel``; "kernel", the Kernel, on CUDA tensors only;
+    "plain", its plain version, on any device."""
+    if backend is None:
+        return kernel
+    if backend == "kernel":
+        if device.type != "cuda":
+            raise ValueError(f"backend='kernel' launches the CUDA kernel: "
+                             f"it needs CUDA tensors, not {device}")
+        return kernel
+    if backend == "plain":
+        return kernel.plain
+    raise ValueError(f"unknown trace backend {backend!r} (None, 'kernel' "
+                     "or 'plain')")

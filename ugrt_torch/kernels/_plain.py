@@ -21,25 +21,6 @@ MAXI = 2**31 - 1      # "no hit" face id
 _PAIRS_PER_CHUNK = 1 << 21   # (ray, triangle) pairs evaluated at once
 
 
-def choose_sweep(kernel, plain, backend, device):
-    """The sweep that a trace calls for ``backend`` (ugrt's ``backend=``
-    of trace_primary / trace_shadow): None, the wrapper ``kernel``,
-    which launches the CUDA kernel on CUDA tensors and runs the plain
-    version on CPU ones; "kernel", the wrapper, on CUDA tensors only;
-    "plain", the plain PyTorch version ``plain``, on any device."""
-    if backend is None:
-        return kernel
-    if backend == "kernel":
-        if device.type != "cuda":
-            raise ValueError(f"backend='kernel' launches the CUDA kernel: "
-                             f"it needs CUDA tensors, not {device}")
-        return kernel
-    if backend == "plain":
-        return plain
-    raise ValueError(f"unknown trace backend {backend!r} (None, 'kernel' "
-                     "or 'plain')")
-
-
 def sweep_items(tri_windows, w_lo, w_hi):
     """Yield (blk [C] int64, tri [C, win, 16]) chunks of the items
     {(b, w) : max(w_lo[b], 0) <= w <= min(w_hi[b], NW - 1)}."""

@@ -18,10 +18,13 @@ as in the script):
   to ``coeff_mt_plain(terms=8)`` within the bound of ``mma_check``.
 
 Item indices are clamped into [0, n_tri).  The wrappers launch the
-kernels for CUDA tensors and run the plain version only for CPU tensors.
+kernels for CUDA tensors and run the plain version only for CPU tensors
+(``_build.Kernel``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,14 +42,18 @@ MMA_BOUND = {"highest": (1, 2.0 ** -19), "default": (0, 2.0 ** -9)}
 _ITEMS_PER_CHUNK = 256
 
 
-def _check(items, tri, rays):
+def _check(items, tri, rays, precision="highest"):
     dev = tri.device
+    if precision not in MMA_BOUND:
+        raise ValueError(f"coeff_mt_mma: precision must be one of "
+                         f"{sorted(MMA_BOUND)}, got {precision!r}")
     _build.check_tensor(items, "items", torch.int32, (None,), dev)
     _build.check_tensor(tri, "tri", torch.float32, (None, TRI_C, TRI_W), dev)
     _build.check_tensor(rays, "rays", torch.float32, (None, RAY_C, RAY_N),
                         dev)
     if tri.shape[0] == 0 or rays.shape[0] == 0:
         raise ValueError("tri and rays must hold at least one block each")
+    return dev
 
 
 def _outputs(tri):
@@ -55,37 +62,11 @@ def _outputs(tri):
                  for _ in range(3))
 
 
-def _dispatch(wrapper, items, tri, rays, terms, entry, *flag):
-    _check(items, tri, rays)
-    if tri.device.type == "cpu":
-        return coeff_mt_plain(items, tri, rays, terms=terms)
-    if tri.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__}: unsupported device "
-                         f"{tri.device}")
+def _launch(entry, items, tri, rays, *flag):
     det, u, v = _outputs(tri)
     _build.launch(entry, items, items.shape[0], tri, tri.shape[0], rays,
                   rays.shape[0], *flag, det, u, v)
-    wrapper.launches += 1
     return det, u, v
-
-
-def coeff_mt_fma(items, tri, rays):
-    """(det, u, v) f32 [n_tri, 256, 128] by 3-term CUDA-core dots."""
-    return _dispatch(coeff_mt_fma, items, tri, rays, 3, "ugrt_coeff_mt_fma")
-
-
-def coeff_mt_mma(items, tri, rays, precision="highest"):
-    """(det, u, v) f32 [n_tri, 256, 128] by 8-deep TF32 tensor-core
-    products; ``precision`` "highest" (3xTF32) or "default" (1xTF32)."""
-    if precision not in MMA_BOUND:
-        raise ValueError(f"coeff_mt_mma: precision must be one of "
-                         f"{sorted(MMA_BOUND)}, got {precision!r}")
-    return _dispatch(coeff_mt_mma, items, tri, rays, 8, "ugrt_coeff_mt_mma",
-                     MMA_BOUND[precision][0])
-
-
-coeff_mt_fma.launches = 0
-coeff_mt_mma.launches = 0
 
 
 def _item_blocks(items, tri, rays):
@@ -149,3 +130,22 @@ def mma_check(got, plain, items, tri, rays, precision):
             bad += int((~(r <= 1)).sum())
             worst = max(worst, float(r.nan_to_num(nan=float("inf")).max()))
     return bad, worst, det_err
+
+
+@_build.kernel(functools.partial(coeff_mt_plain, terms=3), _check)
+def coeff_mt_fma(items, tri, rays):
+    """(det, u, v) f32 [n_tri, 256, 128] by 3-term CUDA-core dots."""
+    return _launch("ugrt_coeff_mt_fma", items, tri, rays)
+
+
+def _mma_plain(items, tri, rays, precision="highest"):
+    """The function ``coeff_mt_mma`` approximates, at either precision."""
+    return coeff_mt_plain(items, tri, rays, terms=8)
+
+
+@_build.kernel(_mma_plain, _check)
+def coeff_mt_mma(items, tri, rays, precision="highest"):
+    """(det, u, v) f32 [n_tri, 256, 128] by 8-deep TF32 tensor-core
+    products; ``precision`` "highest" (3xTF32) or "default" (1xTF32)."""
+    return _launch("ugrt_coeff_mt_mma", items, tri, rays,
+                   MMA_BOUND[precision][0])

@@ -32,7 +32,7 @@ STATS = ("skipped_footprint", "skipped_before_division",
          "skipped_could_not_win", "divided")
 
 
-def _check(heavy_count, table, rays):
+def _check(heavy_count, table, rays, *, cfg: RenderConfig):
     dev = rays.device
     _build.check_tensor(heavy_count, "heavy_count", torch.int32, (), dev)
     _build.check_tensor(table, "table", torch.float32, (16, None), dev)
@@ -43,6 +43,7 @@ def _check(heavy_count, table, rays):
     if rays.data_ptr() % 16:
         raise ValueError("rays: the kernel reads it as float4; its data "
                          "must be 16-byte aligned")
+    return dev
 
 
 def new_stats(device):
@@ -60,28 +61,6 @@ def _launch(heavy_count, table, rays, cfg, stats):
     return t, face
 
 
-def heavy_primary_sweep(heavy_count, table, rays, *, cfg: RenderConfig):
-    """Per-ray (t [NB, 128] f32, face [NB, 128] int32): lex-min (t, face)
-    over the live heavy faces whose footprint holds the ray's cell;
-    t = 3e38 and face = 2^31-1 where there is none.
-
-    heavy_count: int32 scalar tensor; table: [16, NWH * 128]
-    (pack_heavy_windows); rays: [NB, 128, 8] (dir 0:3, gx 4, gy 5).
-    """
-    _check(heavy_count, table, rays)
-    if rays.device.type == "cpu":
-        return heavy_primary_sweep_plain(heavy_count, table, rays, cfg=cfg)
-    if rays.device.type != "cuda":
-        raise ValueError(
-            f"heavy_primary_sweep: unsupported device {rays.device}")
-    out = _launch(heavy_count, table, rays, cfg, None)
-    heavy_primary_sweep.launches += 1
-    return out
-
-
-heavy_primary_sweep.launches = 0
-
-
 def heavy_primary_sweep_stats(heavy_count, table, rays, *,
                               cfg: RenderConfig):
     """The kernel's counts on these inputs (CUDA tensors only), in (ray,
@@ -89,14 +68,13 @@ def heavy_primary_sweep_stats(heavy_count, table, rays, *,
     footprint, at the t-free vote and at the could-win vote, and those
     that divided.  A measurement aid: it launches a counting build of the
     kernel and is no launch of the main path."""
-    _check(heavy_count, table, rays)
+    _check(heavy_count, table, rays, cfg=cfg)
     if rays.device.type != "cuda":
         raise ValueError("heavy_primary_sweep_stats: the counts are the "
                          "CUDA kernel's")
     stats = new_stats(rays.device)
     _launch(heavy_count, table, rays, cfg, stats)
     return dict(zip(STATS, stats.tolist()))
-
 
 
 def heavy_primary_sweep_plain(heavy_count, table, rays, *,
@@ -137,3 +115,15 @@ def heavy_primary_sweep_plain(heavy_count, table, rays, *,
                   | (ud + vd > det2) | ~in_fp | (t <= 0))
         lexmin_into(t_best, f_best, blk, t, reject, tc(14))
     return t_best.reshape(nb, 128), f_best.reshape(nb, 128)
+
+
+@_build.kernel(heavy_primary_sweep_plain, _check)
+def heavy_primary_sweep(heavy_count, table, rays, *, cfg: RenderConfig):
+    """Per-ray (t [NB, 128] f32, face [NB, 128] int32): lex-min (t, face)
+    over the live heavy faces whose footprint holds the ray's cell;
+    t = 3e38 and face = 2^31-1 where there is none.
+
+    heavy_count: int32 scalar tensor; table: [16, NWH * 128]
+    (pack_heavy_windows); rays: [NB, 128, 8] (dir 0:3, gx 4, gy 5).
+    """
+    return _launch(heavy_count, table, rays, cfg, None)

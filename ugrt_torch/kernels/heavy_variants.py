@@ -19,8 +19,8 @@ differ in how a block's window loop is laid out:
 ``mb`` (1, 2, 4 or 8; 64 * mb threads per block, two rays per thread)
 replaces the TPU's MB in {8, 16, 32}, which a 1024-thread block cannot
 hold.  Each wrapper launches its kernel for CUDA tensors and runs
-``heavy_primary_sweep_plain`` only for CPU tensors; ``heavy_sweep_stats``
-launches a counting build.
+``heavy_primary_sweep_plain`` only for CPU tensors (``_build.Kernel``);
+``heavy_sweep_stats`` launches a counting build.
 """
 
 from __future__ import annotations
@@ -38,60 +38,63 @@ MBS = (1, 2, 4, 8)
 V3_NWH = (1, 2, 4, 8, 16)
 
 
-def _sweep(wrapper, heavy_count, table, rays, cfg, mb, stats=None):
-    _check(heavy_count, table, rays)
+def _check_mb(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
+    dev = _check(heavy_count, table, rays, cfg=cfg)
     if mb not in MBS:
-        raise ValueError(f"{wrapper.__name__}: mb must be one of {MBS}, "
-                         f"got {mb}")
+        raise ValueError(f"mb must be one of {MBS}, got {mb}")
+    return dev
+
+
+def _check_v3(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
+    dev = _check_mb(heavy_count, table, rays, cfg=cfg, mb=mb)
     nwh = table.shape[1] // WIN
-    if wrapper is heavy_sweep_v3 and nwh not in V3_NWH:
+    if nwh not in V3_NWH:
         raise ValueError(f"heavy_sweep_v3: the table has {nwh} windows; "
                          f"the kernel is built for {V3_NWH}")
-    if rays.device.type == "cpu":
-        return heavy_primary_sweep_plain(heavy_count, table, rays, cfg=cfg)
-    if rays.device.type != "cuda":
-        raise ValueError(
-            f"{wrapper.__name__}: unsupported device {rays.device}")
+    return dev
+
+
+def _plain(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
+    """K2's plain version (``mb`` changes only the kernel's layout)."""
+    return heavy_primary_sweep_plain(heavy_count, table, rays, cfg=cfg)
+
+
+def _sweep(name, heavy_count, table, rays, cfg, mb, stats=None):
+    """Launch variant ``name``; (t, face) [NB, 128]."""
     nb = rays.shape[0]
-    entry = f"ugrt_{wrapper.__name__}"
-    args = (table, nwh, heavy_count, rays, nb, np.float32(cfg.epsilon),
-            int(cfg.quirks.abs_t), mb)
-    if wrapper is heavy_sweep_v2:
+    args = (table, table.shape[1] // WIN, heavy_count, rays, nb,
+            np.float32(cfg.epsilon), int(cfg.quirks.abs_t), mb)
+    if name == "heavy_sweep_v2":
         keys = torch.full((nb, 128), NO_HIT_KEY, dtype=torch.int64,
                           device=rays.device)
-        _build.launch(entry, *args, keys, stats)
-        out = unpack_key(keys)
-    else:
-        out = (torch.empty((nb, 128), dtype=torch.float32,
-                           device=rays.device),
-               torch.empty((nb, 128), dtype=torch.int32, device=rays.device))
-        _build.launch(entry, *args, *out, stats)
-    if stats is None:
-        wrapper.launches += 1
+        _build.launch(f"ugrt_{name}", *args, keys, stats)
+        return unpack_key(keys)
+    out = (torch.empty((nb, 128), dtype=torch.float32, device=rays.device),
+           torch.empty((nb, 128), dtype=torch.int32, device=rays.device))
+    _build.launch(f"ugrt_{name}", *args, *out, stats)
     return out
 
 
+@_build.kernel(_plain, _check_mb)
 def heavy_sweep_v1(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
     """``heavy_primary_sweep`` with ``mb`` ray blocks per CUDA block, one
     window loop per block; (t, face) [NB, 128]."""
-    return _sweep(heavy_sweep_v1, heavy_count, table, rays, cfg, mb)
+    return _sweep("heavy_sweep_v1", heavy_count, table, rays, cfg, mb)
 
 
+@_build.kernel(_plain, _check_mb)
 def heavy_sweep_v2(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
     """``heavy_primary_sweep`` with the window as a grid axis, merged by
     atomicMin on the packed (t, face) key; (t, face) [NB, 128]."""
-    return _sweep(heavy_sweep_v2, heavy_count, table, rays, cfg, mb)
+    return _sweep("heavy_sweep_v2", heavy_count, table, rays, cfg, mb)
 
 
+@_build.kernel(_plain, _check_v3)
 def heavy_sweep_v3(heavy_count, table, rays, *, cfg: RenderConfig, mb=8):
     """``heavy_primary_sweep`` with the live table in shared memory and
     the window loop unrolled; (t, face) [NB, 128]."""
-    return _sweep(heavy_sweep_v3, heavy_count, table, rays, cfg, mb)
+    return _sweep("heavy_sweep_v3", heavy_count, table, rays, cfg, mb)
 
-
-heavy_sweep_v1.launches = 0
-heavy_sweep_v2.launches = 0
-heavy_sweep_v3.launches = 0
 
 VARIANTS = {"v1": heavy_sweep_v1, "v2": heavy_sweep_v2,
             "v3": heavy_sweep_v3}
@@ -106,6 +109,8 @@ def heavy_sweep_stats(variant, heavy_count, table, rays, *,
     if rays.device.type != "cuda":
         raise ValueError("heavy_sweep_stats: the counts are the CUDA "
                          "kernel's")
+    kernel = VARIANTS[variant]
+    kernel.check(heavy_count, table, rays, cfg=cfg, mb=mb)
     stats = new_stats(rays.device)
-    _sweep(VARIANTS[variant], heavy_count, table, rays, cfg, mb, stats)
+    _sweep(kernel.__name__, heavy_count, table, rays, cfg, mb, stats)
     return dict(zip(STATS, stats.tolist()))

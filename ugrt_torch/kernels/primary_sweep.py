@@ -15,7 +15,7 @@ the result does not depend on ``chunk`` or on the order of the items.
 
 ``primary_sweep`` launches the kernel for CUDA tensors and runs
 ``primary_sweep_plain`` — the same function in PyTorch ops, bitwise
-equal — only for CPU tensors.
+equal — only for CPU tensors (``_build.Kernel``).
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ NO_HIT_KEY = int(pack_key(torch.tensor([BIG], dtype=torch.float32),
                           torch.tensor([MAXI], dtype=torch.int32)))
 
 
-def _check(tri_windows, rays, w_lo, w_hi, chunk):
+def _check(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+           chunk: int = 1):
     dev = rays.device
     nb = rays.shape[0] if rays.dim() == 3 else None
     _build.check_tensor(tri_windows, "tri_windows", torch.float32,
@@ -65,6 +66,7 @@ def _check(tri_windows, rays, w_lo, w_hi, chunk):
                              "data must be 16-byte aligned")
     if not isinstance(chunk, int) or chunk < 1:
         raise ValueError(f"chunk must be a positive int, got {chunk!r}")
+    return dev
 
 
 def _launch(tri_windows, rays, w_lo, w_hi, cfg, chunk, stats):
@@ -80,39 +82,13 @@ def _launch(tri_windows, rays, w_lo, w_hi, cfg, chunk, stats):
     return keys[:nb * 128].view(nb, 128)
 
 
-def primary_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
-                  chunk: int = 1):
-    """Per-ray (t [NB, 128] f32, face [NB, 128] int32): lex-min (t, face)
-    over the admitted rows of each block's window range; t = 3e38 and
-    face = 2^31-1 where there is none.  On the card both are views of
-    the kernel's int64 keys.
-
-    tri_windows: [NW, 128, 16] (pack_tri_windows; face ids of rows that
-    can be admitted are >= 0); rays: [NB, 128, 8] (dir 0:3, cell key 3);
-    w_lo/w_hi: [NB] int32 inclusive window ranges.  ``chunk``: windows
-    per work item.
-    """
-    _check(tri_windows, rays, w_lo, w_hi, chunk)
-    if rays.device.type == "cpu":
-        return primary_sweep_plain(tri_windows, rays, w_lo, w_hi, cfg=cfg,
-                                   chunk=chunk)
-    if rays.device.type != "cuda":
-        raise ValueError(f"primary_sweep: unsupported device {rays.device}")
-    keys = _launch(tri_windows, rays, w_lo, w_hi, cfg, chunk, None)
-    primary_sweep.launches += 1
-    return unpack_key(keys)
-
-
-primary_sweep.launches = 0
-
-
 def primary_sweep_stats(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
                         chunk: int = 1):
     """The kernel's counts on these inputs (CUDA tensors only): the (ray,
     row) tests that its warps ran and skipped at the cell-key vote.  A
     measurement aid: it launches a counting build of the kernel and is no
     launch of the main path."""
-    _check(tri_windows, rays, w_lo, w_hi, chunk)
+    _check(tri_windows, rays, w_lo, w_hi, cfg=cfg, chunk=chunk)
     if rays.device.type != "cuda":
         raise ValueError("primary_sweep_stats: the counts are the CUDA "
                          "kernel's")
@@ -162,3 +138,20 @@ def primary_sweep_plain(tri_windows, rays, w_lo, w_hi, *,
                   | (u + v > 1) | (t <= 0) | (tc(9) != rc(3)))
         lexmin_into(t_best, f_best, blk, t, reject, tc(10))
     return t_best.reshape(nb, 128), f_best.reshape(nb, 128)
+
+
+@_build.kernel(primary_sweep_plain, _check)
+def primary_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+                  chunk: int = 1):
+    """Per-ray (t [NB, 128] f32, face [NB, 128] int32): lex-min (t, face)
+    over the admitted rows of each block's window range; t = 3e38 and
+    face = 2^31-1 where there is none.  On the card both are views of
+    the kernel's int64 keys.
+
+    tri_windows: [NW, 128, 16] (pack_tri_windows; face ids of rows that
+    can be admitted are >= 0); rays: [NB, 128, 8] (dir 0:3, cell key 3);
+    w_lo/w_hi: [NB] int32 inclusive window ranges.  ``chunk``: windows
+    per work item.
+    """
+    return unpack_key(_launch(tri_windows, rays, w_lo, w_hi, cfg, chunk,
+                              None))

@@ -18,9 +18,11 @@ so the bits do not depend on the order of the sum:
   gather).
 
 Each launches the kernel for CUDA tensors and runs its plain version
-only for CPU tensors.  The kernel takes ``Σ|v|`` in another order than
-the plain versions' ``torch.sum``; the two give other bits only when
-that sum lies within its rounding of a power of two (core/gather.py).
+only for CPU tensors (``_build.Kernel``; a call with nothing to sum
+launches nothing and counts no launch).  The kernel takes ``Σ|v|`` in
+another order than the plain versions' ``torch.sum``; the two give
+other bits only when that sum lies within its rounding of a power of
+two (core/gather.py).
 """
 
 from __future__ import annotations
@@ -119,15 +121,17 @@ def _check_rows(rows, cols):
 
 def _check(values, idx, rows, dtype=None):
     """Raise unless values ([N, ...], of ``dtype``, or of any floating
-    dtype for None) and idx ([N] int32) are contiguous on one device."""
+    dtype for None) and idx ([N] int32) are contiguous on one device;
+    returns the device."""
     dev = _check_values(values, dtype)
     _build.check_tensor(idx, "idx", torch.int32, (values.shape[0],), dev)
     _check_rows(rows, math.prod(values.shape[1:]))
+    return dev
 
 
 def _check_faces(values, fid, faces, rows, dtype=None):
     """Raise unless values ([N, 9]), fid ([N] int32) and faces ([F, 3]
-    int32) are contiguous on one device."""
+    int32) are contiguous on one device; returns the device."""
     dev = _check_values(values, dtype)
     if values.dim() != 2 or values.shape[1] != CORNER_COLUMNS:
         raise ValueError(f"values: shape {tuple(values.shape)}, expected "
@@ -137,6 +141,7 @@ def _check_faces(values, fid, faces, rows, dtype=None):
     _check_rows(rows, 3)
     if faces.shape[0] * CORNER_COLUMNS >= 2**31:
         raise ValueError("face_corner_sum: faces * 9 must be below 2^31")
+    return dev
 
 
 def _scratch(values, rows, cols):
@@ -151,47 +156,7 @@ def _grid(values):
     return max(1, min(-(-values.shape[0] // THREADS), BLOCKS_PER_SM * sms))
 
 
-def _cuda_only(values, what):
-    if values.device.type != "cuda":
-        raise ValueError(f"{what}'s CUDA kernel needs CUDA tensors, not "
-                         f"{values.device}")
-
-
-def _launch(values, idx, rows):
-    """``segment_sum``'s kernel on f32 CUDA tensors (anything else
-    raises)."""
-    _check(values, idx, rows, torch.float32)
-    _cuda_only(values, "segment_sum")
-    cols = math.prod(values.shape[1:])
-    out = torch.empty((rows,) + tuple(values.shape[1:]), dtype=torch.float32,
-                      device=values.device)
-    if rows * cols == 0:
-        return out
-    _build.launch("ugrt_segment_sum", values, idx, values.shape[0], rows,
-                  cols, _scratch(values, rows, cols), out, _grid(values))
-    return out
-
-
-def _launch_faces(values, fid, faces, rows):
-    """``face_corner_sum``'s kernel on f32 CUDA tensors (anything else
-    raises)."""
-    _check_faces(values, fid, faces, rows, torch.float32)
-    _cuda_only(values, "face_corner_sum")
-    out = torch.empty((rows, 3), dtype=torch.float32, device=values.device)
-    if rows == 0:
-        return out
-    _build.launch("ugrt_face_corner_sum", values, fid, faces,
-                  values.shape[0], faces.shape[0], rows,
-                  _scratch(values, rows, 3), out, _grid(values))
-    return out
-
-
-def _device_route(values, what):
-    if values.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {values.device}")
-    return values.device.type == "cuda"
-
-
+@_build.kernel(segment_sum_plain, _check)
 def segment_sum(values, idx, rows: int):
     """``out[r] = sum of values[i] over idx[i] == r`` in fixed point (the
     module docstring): the CUDA kernel for CUDA tensors, the plain
@@ -202,15 +167,18 @@ def segment_sum(values, idx, rows: int):
     the card an index outside adds nothing, on the CPU it raises).
     Returns [rows, ...] of values' dtype.
     """
-    _check(values, idx, rows)
-    if not _device_route(values, "segment_sum"):
-        return segment_sum_plain(values, idx, rows)
-    out = _launch(values, idx, rows)
-    if out.numel():
-        segment_sum.launches += 1
+    _check(values, idx, rows, torch.float32)
+    cols = math.prod(values.shape[1:])
+    out = torch.empty((rows,) + tuple(values.shape[1:]), dtype=torch.float32,
+                      device=values.device)
+    if rows * cols == 0:
+        return out
+    _build.launch("ugrt_segment_sum", values, idx, values.shape[0], rows,
+                  cols, _scratch(values, rows, cols), out, _grid(values))
     return out
 
 
+@_build.kernel(face_corner_sum_plain, _check_faces)
 def face_corner_sum(values, fid, faces, rows: int):
     """The corner cotangents ``values`` [N, 9] of N pixels summed onto
     the ``rows`` vertices of their faces, ``faces[fid]``, in fixed point
@@ -222,14 +190,11 @@ def face_corner_sum(values, fid, faces, rows: int):
     int32 in [0, rows) (on the card a face or vertex outside adds
     nothing, on the CPU it raises).  Returns [rows, 3] of values' dtype.
     """
-    _check_faces(values, fid, faces, rows)
-    if not _device_route(values, "face_corner_sum"):
-        return face_corner_sum_plain(values, fid, faces, rows)
-    out = _launch_faces(values, fid, faces, rows)
-    if out.numel():
-        face_corner_sum.launches += 1
+    _check_faces(values, fid, faces, rows, torch.float32)
+    out = torch.empty((rows, 3), dtype=torch.float32, device=values.device)
+    if rows == 0:
+        return out
+    _build.launch("ugrt_face_corner_sum", values, fid, faces,
+                  values.shape[0], faces.shape[0], rows,
+                  _scratch(values, rows, 3), out, _grid(values))
     return out
-
-
-segment_sum.launches = 0
-face_corner_sum.launches = 0

@@ -21,10 +21,8 @@ kernel is replaced.
 
 Each wrapper launches the kernels for CUDA tensors and runs its plain
 version (``*_plain``, the torch chain it replaces, any device) only for
-CPU tensors; results are bitwise the plain versions'.  ``launches``
-counts wrapper calls that launched; so do the recorder's counters
-``b1.shadow_rays``, ``b1.unpermute`` and ``b1.window_angles``
-(``api.profiler``: inside a captured program, once per replay).
+CPU tensors (``_build.Kernel``); results are bitwise the plain
+versions'.
 """
 
 from __future__ import annotations
@@ -34,7 +32,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.vecmath import dot, normalize, sqrt
 from ugrt_torch.grid import binning
@@ -69,6 +66,44 @@ def _signed_angles(primary, primary_eye, light_camcoords):
     return binning.signed_xy_coords(d, light_camcoords)
 
 
+def _flat(primary):
+    """(t [N], ray_dir [N, 3]) of ``primary``'s N rays."""
+    n = primary["t"].numel()
+    return primary["t"].reshape(n), primary["ray_dir"].reshape(n, 3)
+
+
+def _check_angles(primary, primary_eye, light_camcoords):
+    """Raise unless the rays, eye and light fit B1's kernels; returns
+    their device."""
+    t, dirs = _flat(primary)
+    dev, n = t.device, t.numel()
+    _build.check_tensor(t, "t", torch.float32, (n,), dev)
+    _build.check_tensor(dirs, "ray_dir", torch.float32, (n, 3), dev)
+    _build.check_tensor(primary_eye, "primary_eye", torch.float32, (3,), dev)
+    _build.check_tensor(light_camcoords, "light_camcoords", torch.float32,
+                        (None,), dev)
+    if light_camcoords.shape[0] < 32:
+        raise ValueError("light_camcoords: needs the modelview at [16:32]")
+    return dev
+
+
+def _check_rays(primary, primary_eye, light_camcoords, cfg: RenderConfig,
+                *, x_max=None, y_max=None, window=None, angles=None):
+    dev = _check_angles(primary, primary_eye, light_camcoords)
+    if angles is not None and window is None:
+        raise ValueError("shadow_rays: angles= is the windowed mode's")
+    return dev
+
+
+def _check_unpermute(flags, perm):
+    dev = perm.device
+    _build.check_tensor(perm, "perm", torch.int32, (None,), dev)
+    _build.check_tensor(flags, "flags", torch.int32, (None, BLOCK), dev)
+    if flags.numel() < perm.numel():
+        raise ValueError("unpermute: fewer flags than rays")
+    return dev
+
+
 def window_angles_plain(primary, primary_eye, light_camcoords):
     """``window_angles`` in torch ops."""
     sx, sy = _signed_angles(primary, primary_eye, light_camcoords)
@@ -81,28 +116,22 @@ def window_angles_plain(primary, primary_eye, light_camcoords):
     return (*lohi(sx), *lohi(sy)), (sx, sy)
 
 
+@_build.kernel(window_angles_plain, _check_angles)
 def window_angles(primary, primary_eye, light_camcoords):
     """((x0, x1, y0, y1) 0-d f32, (sx, sy) [N] f32): every ray's signed
     angles seen from the light (``binning.signed_xy_coords``; NaN for a
     degenerate direction) and their bounds over the rays where they are
     not NaN (4 and -4 where none is), before any margin."""
-    t, dirs, eye, cc = _ray_inputs(primary, primary_eye, light_camcoords)
-    if t.device.type == "cpu":
-        return window_angles_plain(primary, primary_eye, light_camcoords)
+    t, dirs = _flat(primary)
     n = t.numel()
     sx = torch.empty((n,), dtype=torch.float32, device=t.device)
     sy = torch.empty_like(sx)
     partials = torch.empty((4 * -(-n // _TILE),), dtype=torch.float32,
                            device=t.device)
     bounds = torch.empty((4,), dtype=torch.float32, device=t.device)
-    _build.launch("ugrt_shadow_window", t, dirs, eye, cc, n, sx, sy,
-                  partials, bounds)
-    window_angles.launches += 1
-    profiler.count("b1.window_angles")
+    _build.launch("ugrt_shadow_window", t, dirs, primary_eye,
+                  light_camcoords, n, sx, sy, partials, bounds)
     return tuple(bounds[k] for k in range(4)), (sx, sy)
-
-
-window_angles.launches = 0
 
 
 def shadow_rays_plain(primary, primary_eye, light_camcoords,
@@ -149,6 +178,7 @@ def shadow_rays_plain(primary, primary_eye, light_camcoords,
                       last_real)
 
 
+@_build.kernel(shadow_rays_plain, _check_rays)
 def shadow_rays(primary, primary_eye, light_camcoords, cfg: RenderConfig,
                 *, x_max=None, y_max=None, window=None,
                 angles=None) -> ShadowRays:
@@ -158,13 +188,7 @@ def shadow_rays(primary, primary_eye, light_camcoords, cfg: RenderConfig,
     tensors, the windowed map; else ``x_max`` / ``y_max``, the extent of
     the reference map.  ``angles``: windowed only, (sx, sy) from
     ``window_angles`` on the same rays."""
-    t, dirs, eye, cc = _ray_inputs(primary, primary_eye, light_camcoords)
-    if angles is not None and window is None:
-        raise ValueError("shadow_rays: angles= is the windowed mode's")
-    if t.device.type == "cpu":
-        return shadow_rays_plain(primary, primary_eye, light_camcoords, cfg,
-                                 x_max=x_max, y_max=y_max, window=window,
-                                 angles=angles)
+    t, dirs = _flat(primary)
     n, dev = t.numel(), t.device
     if window is not None:
         win = [_scalar(w, f"window[{k}]", dev) for k, w in enumerate(window)]
@@ -186,17 +210,12 @@ def shadow_rays(primary, primary_eye, light_camcoords, cfg: RenderConfig,
     rows = torch.empty((nb, BLOCK, 8), dtype=torch.float32, device=dev)
     first_cell = torch.empty((nb,), dtype=i32, device=dev)
     last_real = torch.empty((nb,), dtype=i32, device=dev)
-    _build.launch("ugrt_shadow_rays", t, dirs, eye, cc, n, cfg.grid_x,
-                  cfg.grid_y, cfg.num_slabs,
+    _build.launch("ugrt_shadow_rays", t, dirs, primary_eye, light_camcoords,
+                  n, cfg.grid_x, cfg.grid_y, cfg.num_slabs,
                   int(cfg.quirks.y_forward_dot_typo), xp, yp, np.float32(xv),
                   np.float32(yv), *win, sx, sy,
                   scratch, scells, perm, rows, first_cell, last_real)
-    shadow_rays.launches += 1
-    profiler.count("b1.shadow_rays")
     return ShadowRays(rows, scells, perm, first_cell, last_real)
-
-
-shadow_rays.launches = 0
 
 
 def unpermute_plain(flags, perm):
@@ -207,42 +226,13 @@ def unpermute_plain(flags, perm):
     return out
 
 
+@_build.kernel(unpermute_plain, _check_unpermute)
 def unpermute(flags, perm):
     """[N] int32 out with out[perm[j]] = flags[j] (``flags`` the sorted
     blocks' [NB, 128] flags; slots past N are pad)."""
-    dev = perm.device
-    _build.check_tensor(perm, "perm", torch.int32, (None,), dev)
-    _build.check_tensor(flags, "flags", torch.int32, (None, BLOCK), dev)
-    if flags.numel() < perm.numel():
-        raise ValueError("unpermute: fewer flags than rays")
-    if dev.type == "cpu":
-        return unpermute_plain(flags, perm)
-    out = torch.empty(perm.shape, dtype=torch.int32, device=dev)
+    out = torch.empty(perm.shape, dtype=torch.int32, device=perm.device)
     _build.launch("ugrt_shadow_unpermute", flags, perm, perm.numel(), out)
-    unpermute.launches += 1
-    profiler.count("b1.unpermute")
     return out
-
-
-unpermute.launches = 0
-
-
-def _ray_inputs(primary, primary_eye, light_camcoords):
-    t = primary["t"]
-    dev = t.device
-    n = t.numel()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"shadow_bin: unsupported device {dev}")
-    flat_t = t.reshape(n)
-    dirs = primary["ray_dir"].reshape(n, 3)
-    _build.check_tensor(flat_t, "t", torch.float32, (n,), dev)
-    _build.check_tensor(dirs, "ray_dir", torch.float32, (n, 3), dev)
-    _build.check_tensor(primary_eye, "primary_eye", torch.float32, (3,), dev)
-    _build.check_tensor(light_camcoords, "light_camcoords", torch.float32,
-                        (None,), dev)
-    if light_camcoords.shape[0] < 32:
-        raise ValueError("light_camcoords: needs the modelview at [16:32]")
-    return flat_t, dirs, primary_eye, light_camcoords
 
 
 def _extent(v, cfg: RenderConfig, dev):

@@ -42,7 +42,8 @@ STATS = ("items", "unstaged_windows", "known_rays", "vote_skipped_steps",
 HINTS = 1024   # the serial walk's hint slots (csrc/shadow_sweep.cu, kHints)
 
 
-def _check(tri_windows, rays, w_lo, w_hi, chunk, serial):
+def _check(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+           box: bool = False, chunk: int = 1, serial: bool = False):
     dev = rays.device
     nb = rays.shape[0] if rays.dim() == 3 else None
     _build.check_tensor(tri_windows, "tri_windows", torch.float32,
@@ -60,6 +61,7 @@ def _check(tri_windows, rays, w_lo, w_hi, chunk, serial):
     if serial and tri_windows.shape[1] % 32:
         raise ValueError("tri_windows: the serial walk takes windows of a "
                          "multiple of 32 rows")
+    return dev
 
 
 def _launch(tri_windows, rays, w_lo, w_hi, cfg, box, chunk, serial, stats):
@@ -85,36 +87,6 @@ def _launch(tri_windows, rays, w_lo, w_hi, cfg, box, chunk, serial, stats):
     return buf[:nb * 128].view(nb, 128)
 
 
-def shadow_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
-                 box: bool = False, chunk: int = 1, serial: bool = False):
-    """Per-ray occlusion flags [NB, 128] int32.
-
-    tri_windows: [NW, win, 16] coefficient rows; rays: [NB, 128, 8]
-    (dir 0:3, light-to-point distance 3, cell key 4, gx 5, gy 6);
-    w_lo/w_hi: [NB] int32 inclusive window ranges.  A row is a candidate
-    when its key equals the ray's (box=False) or its footprint box holds
-    the ray's (gx, gy) (box=True).  ``chunk``: windows per work item.
-    ``serial``: the kernel's serial walk (each warp takes its rays one
-    after another, 32 rows a step, the group that occluded the ray before
-    first; a second pass walks the rays that group missed) instead of
-    its block walk (each warp takes a row against its 32 rays a step);
-    the flags are the same.
-    """
-    _check(tri_windows, rays, w_lo, w_hi, chunk, serial)
-    if rays.device.type == "cpu":
-        return shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, cfg=cfg,
-                                  box=box, chunk=chunk)
-    if rays.device.type != "cuda":
-        raise ValueError(f"shadow_sweep: unsupported device {rays.device}")
-    flags = _launch(tri_windows, rays, w_lo, w_hi, cfg, box, chunk, serial,
-                    None)
-    shadow_sweep.launches += 1
-    return flags
-
-
-shadow_sweep.launches = 0
-
-
 def shadow_sweep_stats(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
                        box: bool = False, chunk: int = 1,
                        serial: bool = False):
@@ -131,7 +103,8 @@ def shadow_sweep_stats(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
     the ray, and the rays its second pass walked.  A measurement aid: it
     launches a counting build of the kernel and is no launch of the main
     path."""
-    _check(tri_windows, rays, w_lo, w_hi, chunk, serial)
+    _check(tri_windows, rays, w_lo, w_hi, cfg=cfg, box=box, chunk=chunk,
+           serial=serial)
     if rays.device.type != "cuda":
         raise ValueError("shadow_sweep_stats: the counts are the CUDA "
                          "kernel's")
@@ -153,6 +126,26 @@ def shadow_sweep_plain(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
         or_into(flags, blk, occludes(rays[blk], tri, cfg=cfg,
                                      box=box).any(dim=2))
     return flags.reshape(nb, 128)
+
+
+@_build.kernel(shadow_sweep_plain, _check)
+def shadow_sweep(tri_windows, rays, w_lo, w_hi, *, cfg: RenderConfig,
+                 box: bool = False, chunk: int = 1, serial: bool = False):
+    """Per-ray occlusion flags [NB, 128] int32.
+
+    tri_windows: [NW, win, 16] coefficient rows; rays: [NB, 128, 8]
+    (dir 0:3, light-to-point distance 3, cell key 4, gx 5, gy 6);
+    w_lo/w_hi: [NB] int32 inclusive window ranges.  A row is a candidate
+    when its key equals the ray's (box=False) or its footprint box holds
+    the ray's (gx, gy) (box=True).  ``chunk``: windows per work item.
+    ``serial``: the kernel's serial walk (each warp takes its rays one
+    after another, 32 rows a step, the group that occluded the ray before
+    first; a second pass walks the rays that group missed) instead of
+    its block walk (each warp takes a row against its 32 rays a step);
+    the flags are the same.
+    """
+    return _launch(tri_windows, rays, w_lo, w_hi, cfg, box, chunk, serial,
+                   None)
 
 
 def occludes(ray, tri, *, cfg: RenderConfig, box: bool = False):

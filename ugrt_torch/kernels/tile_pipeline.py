@@ -14,7 +14,8 @@ items share one CUDA block and its double buffer; it changes the time,
 never the result.  offs and tiles are clamped into range.
 
 ``tile_sweep`` launches the kernel for CUDA tensors and runs
-``tile_sweep_plain`` (bitwise equal) only for CPU tensors.
+``tile_sweep_plain`` (bitwise equal) only for CPU tensors
+(``_build.Kernel``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ VARIANTS = {"dma": 0, "compute": 1, "full": 2}
 _ITEMS_PER_CHUNK = 512
 
 
-def _check(offs, tiles, tri, rays, variant, wchunk):
+def _check(offs, tiles, tri, rays, variant="full", wchunk=8):
     dev = tri.device
     _build.check_tensor(offs, "offs", torch.int32, (None,), dev)
     _build.check_tensor(tiles, "tiles", torch.int32, (offs.shape[0],), dev)
@@ -46,26 +47,7 @@ def _check(offs, tiles, tri, rays, variant, wchunk):
     if tri.data_ptr() % 16 or rays.data_ptr() % 16:
         raise ValueError("tri and rays: the kernel copies them 16 bytes at "
                          "a time; their data must be 16-byte aligned")
-
-
-def tile_sweep(offs, tiles, tri, rays, variant="full", wchunk=8):
-    """(t f32 [N, 128], i int32 [N, 128]): per item and ray column, the
-    minimum of the chain over the tile rows and its first row."""
-    _check(offs, tiles, tri, rays, variant, wchunk)
-    if tri.device.type == "cpu":
-        return tile_sweep_plain(offs, tiles, tri, rays, variant)
-    if tri.device.type != "cuda":
-        raise ValueError(f"tile_sweep: unsupported device {tri.device}")
-    n = offs.shape[0]
-    t = torch.empty((n, RAY_N), dtype=torch.float32, device=tri.device)
-    i = torch.empty((n, RAY_N), dtype=torch.int32, device=tri.device)
-    _build.launch("ugrt_tile_sweep", offs, tiles, n, tri, tri.shape[0], rays,
-                  rays.shape[0], VARIANTS[variant], wchunk, t, i)
-    tile_sweep.launches += 1
-    return t, i
-
-
-tile_sweep.launches = 0
+    return dev
 
 
 def compute_block(tri_rows, ray_tile):
@@ -100,4 +82,21 @@ def tile_sweep_plain(offs, tiles, tri, rays, variant="full"):
             tri_rows = torch.zeros((e - s, ROWS, 9), device=dev)
             ray_tile = torch.zeros((e - s, RAY_C, RAY_N), device=dev)
         t[s:e], i[s:e] = compute_block(tri_rows, ray_tile)
+    return t, i
+
+
+def _plain(offs, tiles, tri, rays, variant="full", wchunk=8):
+    """``tile_sweep_plain`` (``wchunk`` changes only the time)."""
+    return tile_sweep_plain(offs, tiles, tri, rays, variant)
+
+
+@_build.kernel(_plain, _check)
+def tile_sweep(offs, tiles, tri, rays, variant="full", wchunk=8):
+    """(t f32 [N, 128], i int32 [N, 128]): per item and ray column, the
+    minimum of the chain over the tile rows and its first row."""
+    n = offs.shape[0]
+    t = torch.empty((n, RAY_N), dtype=torch.float32, device=tri.device)
+    i = torch.empty((n, RAY_N), dtype=torch.int32, device=tri.device)
+    _build.launch("ugrt_tile_sweep", offs, tiles, n, tri, tri.shape[0], rays,
+                  rays.shape[0], VARIANTS[variant], wchunk, t, i)
     return t, i

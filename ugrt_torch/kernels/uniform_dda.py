@@ -29,7 +29,7 @@ same (t, face_id, overflow).  ``steps`` follows the CPU's count in the
 kernel; the plain version on the card counts to its last compaction.
 
 ``uniform_dda`` launches the kernel for CUDA tensors and runs
-``uniform_dda_plain`` only for CPU tensors.
+``uniform_dda_plain`` only for CPU tensors (``_build.Kernel``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.vecmath import scalar
 from ugrt_torch.grid.build import DeviceGrid
 from ugrt_torch.kernels import _build
 from ugrt_torch.kernels._plain import BIG
@@ -51,8 +52,9 @@ COMPACT_EVERY = 4
 FACE_COLS = 12
 
 
-def _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-           grid_dims, max_batches, batch, skip_k):
+def _check(ftab, grid: DeviceGrid, origins, dirs, active, exclude_face, lo,
+           hi, grid_dims, *, cfg: RenderConfig, max_batches: int, eps: float,
+           batch: int, skip_k: int, width: int | None = None):
     dev = origins.device
     n = origins.shape[0] if origins.dim() == 2 else None
     gx, gy, gz = grid_dims
@@ -78,6 +80,7 @@ def _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
             raise ValueError(f"{name} must be a positive int, got {v!r}")
     if not isinstance(skip_k, int) or skip_k < 0:
         raise ValueError(f"skip_k must be an int >= 0, got {skip_k!r}")
+    return dev
 
 
 def _tile_width(n, width):
@@ -112,35 +115,6 @@ def _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
     return dict(t=t, face_id=face, overflow=flags[0] != 0, steps=flags[1])
 
 
-def uniform_dda(ftab, grid: DeviceGrid, origins, dirs, active, exclude_face,
-                lo, hi, grid_dims, *, cfg: RenderConfig, max_batches: int,
-                eps: float, batch: int, skip_k: int, width: int | None = None):
-    """Trace rays through a uniform grid (see the module docstring).
-
-    ftab: [F, 12] f32 per-face (v0, e1, e2, pad); grid: the uniform
-    DeviceGrid (cell_count, cell_offset, sorted_faces); origins/dirs:
-    [N, 3] f32; active: [N] bool; exclude_face: [N] int32 (self-hit);
-    lo/hi: [3] f32 grid AABB; grid_dims: (gx, gy, gz); width: the image
-    width when the rays are an image's pixels in row-major order (the
-    kernel then gives each warp an 8x4 pixel tile)."""
-    _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-           grid_dims, max_batches, batch, skip_k)
-    if origins.device.type == "cpu":
-        return uniform_dda_plain(ftab, grid, origins, dirs, active,
-                                 exclude_face, lo, hi, grid_dims, cfg=cfg,
-                                 max_batches=max_batches, eps=eps,
-                                 batch=batch, skip_k=skip_k)
-    if origins.device.type != "cuda":
-        raise ValueError(f"uniform_dda: unsupported device {origins.device}")
-    out = _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-                  grid_dims, cfg, max_batches, eps, batch, skip_k, width)
-    uniform_dda.launches += 1
-    return out
-
-
-uniform_dda.launches = 0
-
-
 def uniform_dda_stats(ftab, grid: DeviceGrid, origins, dirs, active,
                       exclude_face, lo, hi, grid_dims, *, cfg: RenderConfig,
                       max_batches: int, eps: float, batch: int,
@@ -157,7 +131,8 @@ def uniform_dda_stats(ftab, grid: DeviceGrid, origins, dirs, active,
     any ray of each 32 consecutive rays.  A measurement aid: its launch
     is no launch of the main path."""
     _check(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
-           grid_dims, max_batches, batch, skip_k)
+           grid_dims, cfg=cfg, max_batches=max_batches, eps=eps, batch=batch,
+           skip_k=skip_k, width=width)
     if origins.device.type != "cuda":
         raise ValueError("uniform_dda_stats: runs the CUDA kernel, and takes "
                          "CUDA tensors only")
@@ -294,4 +269,20 @@ def uniform_dda_plain(ftab, grid: DeviceGrid, origins, dirs, active,
     return dict(t=torch.where(hit, best_t, -1.0),
                 face_id=torch.where(hit, best_f, -2),
                 overflow=overflow,
-                steps=torch.full((), it, dtype=torch.int32, device=dev))
+                steps=scalar(it, dev, torch.int32))
+
+
+@_build.kernel(uniform_dda_plain, _check)
+def uniform_dda(ftab, grid: DeviceGrid, origins, dirs, active, exclude_face,
+                lo, hi, grid_dims, *, cfg: RenderConfig, max_batches: int,
+                eps: float, batch: int, skip_k: int, width: int | None = None):
+    """Trace rays through a uniform grid (see the module docstring).
+
+    ftab: [F, 12] f32 per-face (v0, e1, e2, pad); grid: the uniform
+    DeviceGrid (cell_count, cell_offset, sorted_faces); origins/dirs:
+    [N, 3] f32; active: [N] bool; exclude_face: [N] int32 (self-hit);
+    lo/hi: [3] f32 grid AABB; grid_dims: (gx, gy, gz); width: the image
+    width when the rays are an image's pixels in row-major order (the
+    kernel then gives each warp an 8x4 pixel tile)."""
+    return _launch(ftab, grid, origins, dirs, active, exclude_face, lo, hi,
+                   grid_dims, cfg, max_batches, eps, batch, skip_k, width)

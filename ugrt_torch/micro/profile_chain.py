@@ -20,10 +20,9 @@ every item pays, their round-trip line; the ray directions and tiling;
 the merge of K1's and K2's hits, the counterpart of profile_primary.py's
 segment-min combine), and the glue around the sweeps (the normals).
 The shadow rays' binning, sort, rows and unpermute, which the script
-times as five items, are B1's two launches here.  The sweeps go through
-``kernels._plain.choose_sweep`` and B1 through its wrappers, as the
-frame's do: the CUDA kernels on the card, their plain versions on the
-CPU.  K1, K2 and K3 alone take the inputs the frame hands them
+times as five items, are B1's two launches here.  The sweeps and B1 go
+through their wrappers, as the frame's do: the CUDA kernels on the
+card, their plain versions on the CPU.  K1, K2 and K3 alone take the inputs the frame hands them
 (``micro.k3_chunks.record_sweeps`` on an eager frame).
 
 Statistics (profile_chain.py:44-47, :103, :218-240): the pairs and heavy
@@ -53,15 +52,12 @@ from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.program import Program
 from ugrt_torch.core.vecmath import transform_point
-from ugrt_torch.dist import mesh as dmesh
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
-from ugrt_torch.kernels._plain import choose_sweep
-from ugrt_torch.kernels.heavy_primary_sweep import (heavy_primary_sweep,
-                                                    heavy_primary_sweep_plain)
-from ugrt_torch.kernels.primary_sweep import primary_sweep, primary_sweep_plain
+from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
+from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.kernels.shadow_bin import shadow_rays, unpermute
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep, shadow_sweep_plain
+from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.micro._common import card_line, main_device
 from ugrt_torch.micro._timing import chain_ms
 from ugrt_torch.micro.k3_chunks import record_sweeps
@@ -135,14 +131,10 @@ def run(cfg: RenderConfig, scene, device, n: int = N):
     H, W = cfg.screen_height, cfg.screen_width
     npx = H * W
     ext, typo = cfg.angular_extent, cfg.quirks.y_forward_dot_typo
-    k1 = choose_sweep(primary_sweep, primary_sweep_plain, None, device)
-    k2 = choose_sweep(heavy_primary_sweep, heavy_primary_sweep_plain, None,
-                      device)
-    k3 = choose_sweep(shadow_sweep, shadow_sweep_plain, None, device)
     rows = []
 
     def t(name, fn, arg):
-        program = Program(fn, static=(), counters=dmesh.COUNTERS)
+        program = Program(fn, static=())
         try:
             timing, out = chain_ms(program, arg, n=n)
         finally:
@@ -201,13 +193,15 @@ def run(cfg: RenderConfig, scene, device, n: int = N):
     t("  pack_tri_windows", lambda v: tw.pack_tri_windows(
         v, faces, grid, eye), verts)
     tri_w, ray_rows, w_lo, w_hi = k1_args
-    t_k1, f_k1 = t("  K1 primary_sweep", lambda r: k1(
+    t_k1, f_k1 = t("  K1 primary_sweep", lambda r: primary_sweep(
         tri_w, r, w_lo, w_hi, **k1_kw), ray_rows)
     h_count, _, h_rows = k2_args
     co = theavy.heavy_coeffs(verts, faces, grid.heavy_faces,
                              grid.heavy_count, eye, grid.heavy_ranges)
-    t_k2, f_k2 = t("  heavy: pack_heavy_windows + K2 1M", lambda r: k2(
-        h_count, tw.pack_heavy_windows(co), r, **k2_kw), h_rows)
+    t_k2, f_k2 = t("  heavy: pack_heavy_windows + K2 1M",
+                   lambda r: heavy_primary_sweep(
+                       h_count, tw.pack_heavy_windows(co), r, **k2_kw),
+                   h_rows)
 
     def merge(th):
         tc, fc = t_k1.reshape(-1), f_k1.reshape(-1)
@@ -248,12 +242,12 @@ def run(cfg: RenderConfig, scene, device, n: int = N):
       torch.zeros(rays.rows.shape[:2], dtype=torch.int32, device=device))
     cells = rays.scells[:npx]
     (tri_h, rows_s, hlo, hhi), kw = k3_sites[True]
-    t("  K3 shadow_sweep, box site", lambda r: k3(
+    t("  K3 shadow_sweep, box site", lambda r: shadow_sweep(
         tri_h, r, hlo, hhi, **kw), rows_s)
     t("  pack_tri_windows_coeff", lambda v: tw.pack_tri_windows_coeff(
         v, faces, lgrid, L, win=tshadow.SWIN), verts)
     (tri_k, rows_s, klo, khi), kw = k3_sites[False]
-    t("  K3 shadow_sweep, key site", lambda r: k3(
+    t("  K3 shadow_sweep, key site", lambda r: shadow_sweep(
         tri_k, r, klo, khi, **kw), rows_s)
 
     # ---------------- statistics ----------------

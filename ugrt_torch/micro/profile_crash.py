@@ -1,22 +1,17 @@
 """Drive the sequence in which torch.profiler crashed on a replayed step
-(ROADMAP Queue 3).
+(the crash: PERF.md §7).
 
     python -m ugrt_torch.micro.profile_crash [--skip 6g,7,8,9,10,11]
         [--sessions 5] [--plain-sums]
 
-Late in a full run of ``chip_smoke.py``, a torch.profiler session over a
-replay of the flagship step's CUDA graph killed the process with SIGSEGV
-inside CUPTI's callback of ``cuGraphLaunch`` (PERF.md §7).  This runs
-``chip_smoke.py``'s own ``main`` (from the checkout's root, seed 0) with
-the phases named by ``--skip`` left out (any of 3, 6g, 7, 8, 9, 10, 11
-and 12; phases 1, 2, 4, 5 and 6 always run) and phase 13 replaced by
-what it did before the crash was found: the bench step
+This runs ``chip_smoke.py``'s own ``main`` (from the checkout's root,
+seed 0) with the phases named by ``--skip`` left out (any of 3, 6g, 7,
+8, 9, 10, 11 and 12; phases 1, 2, 4, 5 and 6 always run) and phase 13
+replaced by what it did before the crash was found: the bench step
 (``bench.make_step``, a replay of ``render_and_grad``'s program) under
 torch.profiler in this process, ``--sessions`` sessions of one replay
 each.  It prints ``profile_crash: done`` and exits 0 when every session
-returned; a crash kills the process (exit 139 under a shell).  The
-crash came in some runs only, and in none so far with the present G1
-kernels (PERF.md §6-7).
+returned; a crash kills the process (exit 139 under a shell).
 ``--plain-sums`` makes the step's two sums run their plain versions
 (``index_add_``) instead of G1.  Each run is one observation: run it in
 a fresh process per try.  Card only.

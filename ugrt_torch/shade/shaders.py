@@ -23,7 +23,8 @@ import torch
 
 from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.gather import gather_rows
-from ugrt_torch.core.vecmath import absolute, dot, normalize, rotate_basis
+from ugrt_torch.core.vecmath import (absolute, dot, normalize, rotate_basis,
+                                     scalar)
 from ugrt_torch.grid import binning
 
 
@@ -122,8 +123,7 @@ def add_shadows_f32(color_f32, shadowed):
     """Shadow darkening in f32 (/3 instead of u8 //3).  Divides by a
     device tensor: CUDA turns division by a host scalar into a multiply
     by its reciprocal, which rounds differently."""
-    three = torch.full((), 3.0, dtype=torch.float32,
-                       device=color_f32.device)
+    three = scalar(3.0, color_f32.device)
     return torch.where(shadowed[..., None] == 1, color_f32 / three,
                        color_f32)
 
@@ -141,8 +141,7 @@ def _noise_int(x):
     x = (x << 13) ^ x
     h = (x * (x * x * 15731 + 789221) + 1376312589) & 0x7FFFFFFF
     # 2^31 as a device tensor: a power of two, so the quotient is exact.
-    return h.to(torch.float32) / torch.full((), 2147483648.0,
-                                            device=h.device)
+    return h.to(torch.float32) / scalar(2147483648.0, h.device)
 
 
 def _interp(a, b, c):

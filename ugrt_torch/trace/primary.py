@@ -26,10 +26,9 @@ from ugrt_torch.config import RenderConfig
 from ugrt_torch.core.camera import primary_ray_dirs
 from ugrt_torch.core.vecmath import cross, dot, normalize, transform_point
 from ugrt_torch.grid.build import DeviceGrid
-from ugrt_torch.kernels._plain import choose_sweep
-from ugrt_torch.kernels.heavy_primary_sweep import (heavy_primary_sweep,
-                                                    heavy_primary_sweep_plain)
-from ugrt_torch.kernels.primary_sweep import primary_sweep, primary_sweep_plain
+from ugrt_torch.kernels._build import choose_sweep
+from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
+from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
 
@@ -121,9 +120,8 @@ def trace_primary(vertices, faces, camcoords, grid: DeviceGrid,
                          "block: n_bx * grid_y must be even")
     nb = num_tiles // 2
     dev = camcoords.device
-    sweep = choose_sweep(primary_sweep, primary_sweep_plain, backend, dev)
-    heavy_sweep = choose_sweep(heavy_primary_sweep, heavy_primary_sweep_plain,
-                               backend, dev)
+    sweep = choose_sweep(primary_sweep, backend, dev)
+    heavy_sweep = choose_sweep(heavy_primary_sweep, backend, dev)
     # The strip's first cell: cells are x-major (bx * grid_y + by) with
     # NS slabs each.  Keys travel as f32, exact below 2^24.
     c0 = bx0 * tiles_y * NS

@@ -31,16 +31,15 @@ import torch.distributed as dist
 
 from ugrt_torch.api import profiler
 from ugrt_torch.config import RenderConfig
-from ugrt_torch.core.vecmath import normalize
+from ugrt_torch.core.vecmath import normalize, scalar
 from ugrt_torch.dist import all_reduce
 from ugrt_torch.grid import binning
 from ugrt_torch.grid import build as gbuild
 from ugrt_torch.grid.build import DeviceGrid
-from ugrt_torch.kernels._plain import choose_sweep
+from ugrt_torch.kernels._build import choose_sweep
 from ugrt_torch.kernels.shadow_bin import (hit_points, shadow_rays,
-                                          shadow_rays_plain, unpermute,
-                                          unpermute_plain, window_angles)
-from ugrt_torch.kernels.shadow_sweep import shadow_sweep, shadow_sweep_plain
+                                          unpermute, window_angles)
+from ugrt_torch.kernels.shadow_sweep import shadow_sweep
 from ugrt_torch.trace import heavy as theavy
 from ugrt_torch.trace import windows as tw
 
@@ -135,11 +134,6 @@ def build_packets(cells, cfg: RenderConfig):
         overflow)
 
 
-def _f32(x, device):
-    # A fill, not a host-to-device copy (capturable; see core.program).
-    return torch.full((), x, dtype=torch.float32, device=device)
-
-
 def light_extents(primary, primary_eye, light_camcoords, cfg: RenderConfig,
                   margin: float = 1.001):
     """Per-frame (x_max, y_max) light-grid extents (0-d tensors): the max
@@ -150,10 +144,10 @@ def light_extents(primary, primary_eye, light_camcoords, cfg: RenderConfig,
     xa = binning.x_angle(d, light_camcoords)
     ya = binning.y_angle(d, light_camcoords, cfg.quirks.y_forward_dot_typo)
     dev = pts.device
-    zero, m = _f32(0.0, dev), _f32(margin, dev)
+    zero, m = scalar(0.0, dev), scalar(margin, dev)
     xm = torch.where(torch.isnan(xa), zero, xa).amax() * m
     ym = torch.where(torch.isnan(ya), zero, ya).amax() * m
-    lo, pi = _f32(1e-3, dev), _f32(math.pi, dev)
+    lo, pi = scalar(1e-3, dev), scalar(math.pi, dev)
     return (torch.clamp(xm, lo, pi), torch.clamp(ym, lo, pi))
 
 
@@ -162,7 +156,7 @@ def apply_window_margin(x0, x1, y0, y1, margin: float = WINDOW_MARGIN):
     floored at WINDOW_MIN_WIDTH)."""
     def pad(lo, hi):
         w = torch.clamp(hi - lo, min=WINDOW_MIN_WIDTH)
-        d = w * _f32(margin, w.device)
+        d = w * scalar(margin, w.device)
         return lo - d, hi + d
 
     x0, x1 = pad(x0, x1)
@@ -197,9 +191,9 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
     """
     H, W = primary["t"].shape
     dev = primary["t"].device
-    sweep = choose_sweep(shadow_sweep, shadow_sweep_plain, backend, dev)
-    rays_fn = choose_sweep(shadow_rays, shadow_rays_plain, backend, dev)
-    unpermute_fn = choose_sweep(unpermute, unpermute_plain, backend, dev)
+    sweep = choose_sweep(shadow_sweep, backend, dev)
+    rays_fn = choose_sweep(shadow_rays, backend, dev)
+    unpermute_fn = choose_sweep(unpermute, backend, dev)
     L = light_camcoords[0:3]
     NS = cfg.num_slabs
     sentinel = cfg.cell_sentinel
