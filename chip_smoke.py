@@ -40,14 +40,20 @@ Phases (each prints a line; any failure raises and exits non-zero):
     flags; the same on a ragged 1000 x 999 slice with NaN and inf t.
     Prints each launch's ms as a replayed graph beside the plain
     chain's and the bound (the rays' t and dir read once, the rows,
-    keys and ids written once, at the card's memory rate).
+    keys and ids written once, at the card's memory rate).  B2
+    (kernels/shadow_tris), the triangle side, on each mode's light grid
+    and B1's blocks of the flagship frame: the key and heavy rows and
+    every range bitwise its plain version, its ms as a replayed graph
+    beside the plain chain's and the bound (each pair slot's face and
+    key read, its 64-byte row written).
  4. Renders the Cornell box at 128^2 on the card and on the CPU (where
     the sweeps run their plain versions); at most 0.1% of pixels of the
     u8 image and of the shadow mask may differ.  The CPU frame is held
     to the numpy oracle by the tests (tests/test_torch_render.py).
  5. Flagship frames through Renderer.render on the card, windowed then
     reference light grid, 4 frames each; every kernel must have launched
-    (B1's wrappers once a frame, the window's in windowed mode only)
+    (B1's and B2's wrappers once a frame, the window's in windowed mode
+    only)
     and no grid capacity may overflow.  Prints per-frame ms, then the
     device-busy share and top kernels of one more frame per mode under
     torch.profiler.  Renderer.render, render_and_grad and train()'s step
@@ -688,6 +694,7 @@ def bin_phase(scene, flagship, camera, light):
     from ugrt_torch import bridge
     from ugrt_torch.grid import build as gbuild
     from ugrt_torch.kernels import shadow_bin as b1
+    from ugrt_torch.kernels import shadow_tris as b2
     from ugrt_torch.trace import primary as tprimary
     from ugrt_torch.trace import shadow as tshadow
 
@@ -755,6 +762,36 @@ def bin_phase(scene, flagship, camera, light):
                     f"{nbyte} bytes: bound {b_ms:.5f} ms by {b_by} "
                     f"({100 * b_ms / rays_ms:.1f}%); unpermute {up_ms:.4f} "
                     f"ms, plain {up_plain:.4f} ms")
+                # B2 on this mode's light grid and B1's blocks.
+                lgrid = gbuild.build_spherical_grid(
+                    v, f, lcc, cfg=cfg,
+                    capacity=cfg.pair_capacity(scene.num_faces),
+                    **{k: a for k, a in kw.items() if k != "angles"})
+                targs = (v, f, lgrid, lcc, got.first_cell, got.last_real,
+                         cfg)
+                tg, tp = b2.shadow_tris(*targs), b2.shadow_tris_plain(*targs)
+                bad += [f"{mode} B2 {name}" for name, g, w in zip(
+                    tg._fields, tg, tp) if not same_bits(g, w)]
+                tris_ms = graph_ms(lambda: b2.shadow_tris(*targs), 20)
+                tris_plain = graph_ms(lambda: b2.shadow_tris_plain(*targs),
+                                      20)
+                # Each pair slot's face and key in, its row out; the heavy
+                # slots' rows; two cells and the ranges of each block.
+                tbyte = (nbytes(lgrid.sorted_faces, lgrid.sorted_keys,
+                                tg.tri_w, tg.tri_hw, lgrid.heavy_ranges)
+                         + nb * (4 * 4 + 4 * 4))
+                tb_ms, tb_by = bound(0, tbyte)
+                record.update(tris_ms=tris_ms, tris_plain_ms=tris_plain,
+                              tris_bound_ms=tb_ms,
+                              pairs=int(lgrid.total_pairs),
+                              heavy=int(lgrid.heavy_count))
+                say(f"phase 3b: B2 {mode}: {int(lgrid.total_pairs)} pairs "
+                    f"of {lgrid.sorted_faces.numel()}, "
+                    f"{int(lgrid.heavy_count)} heavy: shadow_tris "
+                    f"{tris_ms:.4f} ms (replayed graph), plain chain "
+                    f"{tris_plain:.4f} ms; {tbyte} bytes: bound "
+                    f"{tb_ms:.5f} ms by {tb_by} "
+                    f"({100 * tb_ms / tris_ms:.1f}%)")
             results[f"{label}: {mode}"] = record
         if label == "flagship":
             w_ms = graph_ms(lambda: b1.window_angles(prim, eye, lcc), 20)
@@ -769,7 +806,8 @@ def bin_phase(scene, flagship, camera, light):
         say(f"phase 3b: {label} ({n} rays): {len(bad)} fields differ "
             f"from the plain version {bad}")
         if bad:
-            fail(f"phase 3b: B1 disagrees with its plain version: {bad}")
+            fail(f"phase 3b: B1 or B2 disagrees with its plain version: "
+                 f"{bad}")
     return results
 
 
@@ -2902,6 +2940,7 @@ def main(argv=None):
     from ugrt_torch.kernels import shadow_bin as b1
     from ugrt_torch.kernels import shadow_sweep as k3
     from ugrt_torch.kernels.segment_sum import face_corner_sum, segment_sum
+    from ugrt_torch.kernels.shadow_tris import shadow_tris
     from ugrt_torch.kernels.uniform_dda import uniform_dda
     from ugrt_torch.scene import procedural
 
@@ -2962,6 +3001,7 @@ def main(argv=None):
 
     # Phase 5: the main path, flagship frames.
     b1_wrappers = {"shadow_rays": b1.shadow_rays,
+                   "shadow_tris": shadow_tris,
                    "unpermute": b1.unpermute,
                    "window_angles": b1.window_angles}
     for k in (k1.primary_sweep, k2.heavy_primary_sweep, k3.shadow_sweep):
@@ -3010,15 +3050,16 @@ def main(argv=None):
                     frame_ms.items()))
     if min(launches.values()) <= 0:
         fail("phase 5: a kernel of the path was never launched")
-    # One light: B1's wrappers as often as each other (the window's in
-    # windowed mode only), credited per replay of the frame's graph.
-    say(f"phase 5: B1 launches {b1_launches}")
+    # One light: B1's and B2's wrappers as often as each other (the
+    # window's in windowed mode only), credited per replay of the frame's
+    # graph.
+    say(f"phase 5: B1 and B2 launches {b1_launches}")
     for mode, got in b1_launches.items():
         n = got["shadow_rays"]
-        if (n < FRAMES or got["unpermute"] != n
+        if (n < FRAMES or got["unpermute"] != n or got["shadow_tris"] != n
                 or got["window_angles"] != (n if mode == "windowed" else 0)):
-            fail(f"phase 5: {mode}: B1's launches are not one a light and "
-                 f"frame")
+            fail(f"phase 5: {mode}: B1's and B2's launches are not one a "
+                 f"light and frame")
     profile_frames(scene, flagship, camera, light, lp)
 
     # Phase 6: the differentiable step (and G1 alone, 6g); phase 7: the
@@ -3026,7 +3067,8 @@ def main(argv=None):
     # after it).  The step's paths also launch G1.
     k_wrappers = {"primary_sweep": k1.primary_sweep,
                   "heavy_primary_sweep": k2.heavy_primary_sweep,
-                  "shadow_sweep": k3.shadow_sweep}
+                  "shadow_sweep": k3.shadow_sweep,
+                  "shadow_tris": shadow_tris}
     step_kernels = dict(k_wrappers, face_corner_sum=face_corner_sum,
                         segment_sum=segment_sum)
     step_launches, step_ms = step_phase(scene, flagship, camera, light,
@@ -3168,6 +3210,27 @@ def main(argv=None):
         **{k: bins["flagship: reference"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
         "sites": bins})
+    ref = bins["flagship: reference"]
+    kernels.append({
+        "name": "shadow_tris", "route": "cuda",
+        "source": "ugrt_torch/csrc/shadow_tris.cu",
+        "replaces": "no Pallas kernel: the XLA ops between ugrt's ray side "
+                    "and its shadow sweep (pack_tri_windows_coeff, "
+                    "window_span, heavy_coeffs, spatial_reorder_heavy, "
+                    "pack_heavy_coeff_windows, heavy_window_rects, "
+                    "heavy_block_window_range)",
+        "launches": sum(m["shadow_tris"] for m in b1_launches.values()),
+        "step_launches": step_launches["shadow_tris"],
+        "reflect_launches": reflect_launches["shadow_tris"],
+        "train_launches": train_launches["shadow_tris"],
+        "mesh_launches": mesh_launches["shadow_tris"],
+        "program_launches": program_launches["shadow_tris"],
+        "bench_launches": bench_launches["shadow_tris"],
+        "library_ms": None,
+        "library_none": "no single PyTorch call packs a grid's pairs into "
+                        "coefficient rows and ranks the heavy list",
+        "ms": ref["tris_ms"], "plain_ms": ref["tris_plain_ms"],
+        "bound_ms": ref["tris_bound_ms"], "bound_by": "bytes"})
     kernels += probes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ registered without a case here fails its case."""
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import pkgutil
 
@@ -16,8 +17,11 @@ import torch
 import ugrt_torch.kernels
 from ugrt_torch import bench, bridge
 from ugrt_torch.config import RenderConfig
+from ugrt_torch.core.host_camera import CameraSpec
+from ugrt_torch.grid import build as gbuild
 from ugrt_torch.kernels import _build
 from ugrt_torch.micro import dda_edge, micro_heavy, micro_mxu, pallas_micro
+from ugrt_torch.scene import procedural
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Every kernel module, so that every Kernel is registered.
@@ -74,6 +78,25 @@ def _face_values(g):
     return (torch.randn((64, 9), generator=g), fid, faces, 30), {}
 
 
+def _tris(g):
+    """The Cornell box's light grid (heavy threshold 4: a heavy list) and
+    four ray blocks' first and last real cells, one all sentinel."""
+    cfg = dataclasses.replace(CFG, screen_width=64, screen_height=64,
+                              grid_x=8, grid_y=8, heavy_threshold=4)
+    sc = bridge.scene_to_torch(procedural.cornell_box(subdiv=2), "cpu")
+    light = CameraSpec(eye=(0.13, 0.87, 0.52), look_at=(0.07, -1.0, 0.49),
+                       up=(0.0, 0.0, 1.0), near=0.1, far=100.0)
+    lcc = bridge.camcoords_to_torch(light, cfg.fovy_deg, 1.0, "cpu")
+    lgrid = gbuild.build_spherical_grid(
+        sc["vertices"], sc["faces"], lcc, cfg=cfg,
+        capacity=cfg.pair_capacity(sc["faces"].shape[0]))
+    first = torch.sort(torch.randint(0, cfg.cell_sentinel, (4,),
+                                     generator=g)).values.int()
+    last = torch.maximum(first, torch.roll(first, -1)).int()
+    first[3], last[3] = cfg.cell_sentinel, -1
+    return (sc["vertices"], sc["faces"], lgrid, lcc, first, last, cfg), {}
+
+
 # Kernel name -> g -> (positional arguments, keyword arguments).
 EXAMPLES = {
     "primary_sweep": _k1,
@@ -91,6 +114,7 @@ EXAMPLES = {
                                            generator=g),
                              torch.randperm(300, generator=g).int()), {}),
     "window_angles": lambda g: (_rays(g), {}),
+    "shadow_tris": _tris,
     "coeff_mt_fma": lambda g: (micro_mxu.make_workload("cpu", n_items=2),
                                {}),
     "coeff_mt_mma": lambda g: (micro_mxu.make_workload("cpu", n_items=2),

@@ -463,7 +463,7 @@ def test_shadow_sweep_stats_needs_the_card():
 
 def test_build_keeps_the_probes_apart():
     """The sweeps K1-K3 with the DDA D1, the segment sum G1 and the
-    shadow rays' B1, and the probes S1-S3, build as two libraries: each library's entry points are
+    shadow pass's B1 and B2, and the probes S1-S3, build as two libraries: each library's entry points are
     defined in its own sources, the error string in the source both
     link, and each library's key covers its sources and the local headers
     they include, and nothing else."""
@@ -483,7 +483,7 @@ def test_build_keeps_the_probes_apart():
     assert srcs["kernels"] == {"primary_sweep.cu", "heavy_primary_sweep.cu",
                                "shadow_sweep.cu", "uniform_dda.cu",
                                "segment_sum.cu", "shadow_bin.cu",
-                               "cuda_error.cu"}
+                               "shadow_tris.cu", "cuda_error.cu"}
     assert srcs["kernels"] & srcs["probes"] == {"cuda_error.cu"}
     every = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
     assert srcs["kernels"] | srcs["probes"] == every

@@ -395,6 +395,28 @@ def test_shadow_rays_span_nests_in_trace_shadow(mode):
         assert s.t1 >= s.t0
 
 
+@pytest.mark.parametrize("mode", ["reference", "windowed"])
+def test_shadow_tris_span_nests_in_trace_shadow(mode):
+    """B2's span ``shadow.tris`` opens once a light and frame, inside
+    ``trace.shadow`` after ``shadow.rays``, in the frame's request."""
+    sc = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(TINY, light_grid_mode=mode)
+    r = rapi.Renderer(sc, cfg, device="cpu")
+    rapi.render_frame_device.clear()
+    try:
+        with profiler.tracing("cpu") as rec:
+            for _ in range(2):
+                r.render(CAMERA, [LIGHT, CAMERA], LIGHT.eye)
+    finally:
+        rapi.render_frame_device.clear()
+    by_name = _by_name(rec)
+    spans, rays = by_name["shadow.tris"], by_name["shadow.rays"]
+    assert len(spans) == len(rays) == 4
+    for s, b in zip(spans, rays):
+        assert s.parent.name == "trace.shadow" and s.rid == s.parent.rid
+        assert s.parent is b.parent and s.t0 >= b.t1 and s.t1 >= s.t0
+
+
 @pytest.mark.cuda
 def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
     """On the card, each replay of a traced frame credits B1's counters
@@ -427,3 +449,34 @@ def test_replays_credit_b1_counters_and_time_its_span_on_the_card():
         assert p.name == "trace.shadow" and p.d0 <= s.d0 and s.d1 <= p.d1
     report = rec.report()
     assert "shadow.rays" in report and "kernel.shadow_rays" in report
+
+
+@pytest.mark.cuda
+def test_replays_credit_b2_counter_and_time_its_span_on_the_card():
+    """On the card, each replay of a traced frame credits B2's counter
+    ``kernel.shadow_tris`` once a light and times ``shadow.tris`` inside
+    ``trace.shadow``; ``report()`` lists both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    sc = procedural.cornell_box(subdiv=2)
+    cfg = dataclasses.replace(TINY, light_grid_mode="reference")
+    r = rapi.Renderer(sc, cfg, device="cuda")
+    rapi.render_frame_device.clear()
+    try:
+        with profiler.tracing("cuda"):           # captures the traced key
+            r.render(CAMERA, [LIGHT, CAMERA], LIGHT.eye, use_spot=True)
+        with profiler.tracing("cuda") as rec:
+            for _ in range(3):
+                r.render(CAMERA, [LIGHT, CAMERA], LIGHT.eye, use_spot=True)
+    finally:
+        rapi.render_frame_device.clear()
+    assert rec.counts["kernel.shadow_tris"] == 6
+    spans = _by_name(rec)["shadow.tris"]
+    assert len(spans) == 6
+    for s in spans:
+        assert s.t0 is None and s.d1 > s.d0      # ran inside the graph
+        p = s.parent
+        assert p.name == "trace.shadow" and p.d0 <= s.d0 and s.d1 <= p.d1
+    report = rec.report()
+    assert "shadow.tris" in report and "kernel.shadow_tris" in report

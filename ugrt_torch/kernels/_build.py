@@ -2,19 +2,20 @@
 
 The sources make two libraries, each with a plain C interface loaded
 with ctypes: ``kernels``, the sweeps K1-K3 of the frame, step and
-training paths, the reflection DDA D1 and the step's segment sums G1,
-and ``probes``, the probes S1-S3 that only ``ugrt_torch.micro``
-launches, so a renderer's first frame waits for nvcc on the main paths'
-kernels alone.  Each ``.cu`` file of a library compiles
-with its own nvcc process, all started together, and the objects link
-into one shared library; ``cuda_error.cu`` (``ugrt_cuda_error_string``)
-goes into both.  Each entry point takes device pointers, sizes and the
-CUDA stream as plain integers and returns the ``cudaError_t`` of its
-launch.  A library lands in ``ugrt_torch/_build/`` under a name keyed
-by a hash of the flags, its own sources and the local headers they
-include, so an edited kernel rebuilds its library and an unchanged one
-loads at once.  Importing this module needs no nvcc: a library is built
-at the first CUDA launch of one of its entry points.
+training paths, the reflection DDA D1, the step's segment sums G1 and
+the shadow pass's ray and triangle sides B1 and B2, and ``probes``, the
+probes S1-S3 that only ``ugrt_torch.micro`` launches, so a renderer's
+first frame waits for nvcc on the main paths' kernels alone.  Each
+``.cu`` file of a library compiles with its own nvcc process, all
+started together, and the objects link into one shared library;
+``cuda_error.cu`` (``ugrt_cuda_error_string``) goes into both.  Each
+entry point takes device pointers, sizes and the CUDA stream as plain
+integers and returns the ``cudaError_t`` of its launch.  A library lands
+in ``ugrt_torch/_build/`` under a name keyed by a hash of the flags, its
+own sources and the local headers they include, so an edited kernel
+rebuilds its library and an unchanged one loads at once.  Importing this
+module needs no nvcc: a library is built at the first CUDA launch of one
+of its entry points.
 
 The flags pin the numerics the plain PyTorch versions reproduce: no FMA
 contraction (``-fmad=false``), IEEE division and square root, and
@@ -62,7 +63,7 @@ NVCC_FLAGS = (
 LIBRARIES = {
     "kernels": ("primary_sweep.cu", "heavy_primary_sweep.cu",
                 "shadow_sweep.cu", "uniform_dda.cu", "segment_sum.cu",
-                "shadow_bin.cu"),
+                "shadow_bin.cu", "shadow_tris.cu"),
     "probes": ("coeff_mt.cu", "tile_pipeline.cu", "heavy_variants.cu"),
 }
 COMMON = ("cuda_error.cu",)
@@ -89,6 +90,9 @@ SIGNATURES = {
                              _P, _P),
         "ugrt_shadow_unpermute": (_P, _P, _I, _P, _P),
         "ugrt_shadow_window": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
+        "ugrt_shadow_tris": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                             _P, _P, _P),
     },
     "probes": {
         "ugrt_heavy_sweep_v1": (_P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P,

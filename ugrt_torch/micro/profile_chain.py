@@ -20,7 +20,9 @@ every item pays, their round-trip line; the ray directions and tiling;
 the merge of K1's and K2's hits, the counterpart of profile_primary.py's
 segment-min combine), and the glue around the sweeps (the normals).
 The shadow rays' binning, sort, rows and unpermute, which the script
-times as five items, are B1's two launches here.  The sweeps and B1 go
+times as five items, are B1's two launches here; the triangle side's
+rows and ranges are B2's, timed beside ``pack_tri_windows_coeff`` and
+B2's plain version (the torch chain it replaced).  The sweeps and B1 go
 through their wrappers, as the frame's do: the CUDA kernels on the
 card, their plain versions on the CPU.  K1, K2 and K3 alone take the inputs the frame hands them
 (``micro.k3_chunks.record_sweeps`` on an eager frame).
@@ -58,6 +60,7 @@ from ugrt_torch.kernels.heavy_primary_sweep import heavy_primary_sweep
 from ugrt_torch.kernels.primary_sweep import primary_sweep
 from ugrt_torch.kernels.shadow_bin import shadow_rays, unpermute
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
+from ugrt_torch.kernels.shadow_tris import SWIN, shadow_tris
 from ugrt_torch.micro._common import card_line, main_device
 from ugrt_torch.micro._timing import chain_ms
 from ugrt_torch.micro.k3_chunks import record_sweeps
@@ -91,6 +94,8 @@ LINE_ITEMS = (
     "  B1 unpermute 1M",
     "  K3 shadow_sweep, box site",
     "  pack_tri_windows_coeff",
+    "  B2 shadow_tris (rows, heavy rows, ranges)",
+    "  B2's plain chain (shadow_tris_plain)",
     "  K3 shadow_sweep, key site",
 )
 STATS = ("faces", "capacity", "persp_pairs", "persp_heavy", "sph_pairs",
@@ -245,7 +250,11 @@ def run(cfg: RenderConfig, scene, device, n: int = N):
     t("  K3 shadow_sweep, box site", lambda r: shadow_sweep(
         tri_h, r, hlo, hhi, **kw), rows_s)
     t("  pack_tri_windows_coeff", lambda v: tw.pack_tri_windows_coeff(
-        v, faces, lgrid, L, win=tshadow.SWIN), verts)
+        v, faces, lgrid, L, win=SWIN), verts)
+    t("  B2 shadow_tris (rows, heavy rows, ranges)", lambda v: shadow_tris(
+        v, faces, lgrid, lcc, rays.first_cell, rays.last_real, cfg), verts)
+    t("  B2's plain chain (shadow_tris_plain)", lambda v: shadow_tris.plain(
+        v, faces, lgrid, lcc, rays.first_cell, rays.last_real, cfg), verts)
     (tri_k, rows_s, klo, khi), kw = k3_sites[False]
     t("  K3 shadow_sweep, key site", lambda r: shadow_sweep(
         tri_k, r, klo, khi, **kw), rows_s)

@@ -4,7 +4,9 @@ Every pixel's shadow ray runs from the light to the primary hit point
 (misses included, with their garbage point eye - dir, as the reference
 reorders all rays).  B1 (kernels/shadow_bin) bins the rays by
 light-grid cell, sorts them stably, and lays them out as 128-ray blocks
-of K3's rows; K3 (kernels/shadow_sweep) sweeps them per slab over the
+of K3's rows; B2 (kernels/shadow_tris) packs the light grid's pairs and
+heavy list into K3's triangle rows and gives each block its window
+ranges; K3 (kernels/shadow_sweep) sweeps the blocks per slab over the
 256-wide windows of the light grid's pair span of each block's cells
 (admission by cell key), then over the 128-wide heavy windows whose
 footprint union the block's cells touch (admission by footprint box).
@@ -40,11 +42,8 @@ from ugrt_torch.kernels._build import choose_sweep
 from ugrt_torch.kernels.shadow_bin import (hit_points, shadow_rays,
                                           unpermute, window_angles)
 from ugrt_torch.kernels.shadow_sweep import shadow_sweep
-from ugrt_torch.trace import heavy as theavy
-from ugrt_torch.trace import windows as tw
+from ugrt_torch.kernels.shadow_tris import shadow_tris
 
-SWIN = 256    # cell-key windows: shadow spans cover several windows
-HWIN = 128    # heavy footprint-box windows
 # Windows per K3 work item at each site: the fastest of 1, 2, 4 and 8 on
 # the flagship windowed frame (PERF.md, K3: the cell-key site walks 1.2
 # windows per block on average, the box site 3.7 half-width ones for rays
@@ -186,15 +185,15 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
     what ``light_grid`` was built with, or cell keys disagree.
     ``angles``: windowed only, the rays' (sx, sy) from B1's
     ``window_angles`` on this ``primary``, which the binning then reuses.
-    ``backend``: None, "kernel" or "plain" (``trace.primary``), for B1
-    and both of K3's sites.
+    ``backend``: None, "kernel" or "plain" (``trace.primary``), for B1,
+    B2 and both of K3's sites.
     """
     H, W = primary["t"].shape
     dev = primary["t"].device
     sweep = choose_sweep(shadow_sweep, backend, dev)
     rays_fn = choose_sweep(shadow_rays, backend, dev)
+    tris_fn = choose_sweep(shadow_tris, backend, dev)
     unpermute_fn = choose_sweep(unpermute, backend, dev)
-    L = light_camcoords[0:3]
     NS = cfg.num_slabs
     sentinel = cfg.cell_sentinel
 
@@ -203,14 +202,11 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
         rays = rays_fn(primary, primary_eye, light_camcoords, cfg,
                        x_max=x_max, y_max=y_max, window=window,
                        angles=angles)
+    # K3's triangle rows at both sites and each block's ranges (B2).
+    with profiler.span("shadow.tris", device=True):
+        tris = tris_fn(vertices, faces, light_grid, light_camcoords,
+                       rays.first_cell, rays.last_real, cfg)
     rows = rays.rows
-    first_cell, last_real = rays.first_cell, rays.last_real
-    live = last_real >= 0
-    k1 = torch.clamp(first_cell, 0, sentinel - 1).long() * NS
-    k2 = torch.clamp(last_real, 0, sentinel - 1).long() * NS
-
-    tri_w = tw.pack_tri_windows_coeff(vertices, faces, light_grid, L,
-                                      win=SWIN)
     serial = window is None
     nb = rows.shape[0]
     shadow_blocks = torch.zeros((nb, 128), dtype=torch.int32, device=dev)
@@ -219,24 +215,14 @@ def trace_shadow(vertices, faces, light_camcoords, light_grid: DeviceGrid,
             scell_blk = rays.scells.reshape(nb, 128)
             rows[:, :, 4] = torch.where(scell_blk < sentinel,
                                         (scell_blk * NS + slab).float(), -1.0)
-        lo = torch.where(live, light_grid.cell_offset[k1 + slab], 0)
-        hi = torch.where(live, light_grid.cell_offset[k2 + slab]
-                         + light_grid.cell_count[k2 + slab], 0)
-        w_lo, w_hi = tw.window_span(lo, hi, SWIN)
-        shadow_blocks |= sweep(tri_w, rows, w_lo, w_hi, cfg=cfg,
+        shadow_blocks |= sweep(tris.tri_w, rows, tris.w_lo[slab],
+                               tris.w_hi[slab], cfg=cfg,
                                chunk=SERIAL_CHUNK if serial else SCHUNK,
                                serial=serial)
 
     if light_grid.heavy_faces.shape[0] > 0:
-        co = theavy.heavy_coeffs(vertices, faces, light_grid.heavy_faces,
-                                 light_grid.heavy_count, L,
-                                 light_grid.heavy_ranges)
-        co = tw.spatial_reorder_heavy(co)
-        tri_hw = tw.pack_heavy_coeff_windows(co, win=HWIN)
-        hlo, hhi = tw.heavy_block_window_range(
-            first_cell, last_real, cfg.grid_y, tw.heavy_window_rects(co, HWIN))
-        shadow_blocks |= sweep(tri_hw, rows, hlo, hhi, cfg=cfg, box=True,
-                               chunk=HCHUNK)
+        shadow_blocks |= sweep(tris.tri_hw, rows, tris.hlo, tris.hhi,
+                               cfg=cfg, box=True, chunk=HCHUNK)
 
     return unpermute_fn(shadow_blocks, rays.perm).reshape(H, W)
 
